@@ -1,0 +1,234 @@
+"""The torch port's curve-query ops against the reference package's.
+
+The same numpy-seeded inputs go through ``repro.kernels.ppoly_eval`` (its
+plain jnp versions, ``use_pallas=False``) and ``repro_torch.kernels.ppoly_eval``
+(CPU tensors take the plain torch versions).  Tolerance: rtol/atol 1e-5 on
+values, as in ``tests/test_kernel_ppoly_eval.py``; argmin exactly equal.
+
+The CUDA kernels themselves are held against the plain torch versions by
+the ``requires_cuda`` tests at the end, which skip without a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import PPoly as RefPPoly
+from repro.kernels import ppoly_eval as ref_ops
+from repro_torch.core import PPoly
+from repro_torch.kernels import ppoly_eval as ops
+from repro_torch.kernels.ppoly_eval import kernel
+
+RTOL = ATOL = 1e-5
+
+
+def _random_ppolys(rng, n, max_pieces=6, max_deg=3):
+    fns = []
+    for _ in range(n):
+        np_pieces = rng.integers(1, max_pieces + 1)
+        starts = np.concatenate([[0.0], np.sort(rng.uniform(0.5, 50.0, np_pieces - 1))])
+        deg = int(rng.integers(0, max_deg + 1))
+        coeffs = [rng.uniform(-3, 3, rng.integers(1, deg + 2)) for _ in range(np_pieces)]
+        fns.append(PPoly(starts, coeffs))
+    return fns
+
+
+def _random_monotone(rng, n_pieces, quad=True, jumps=True):
+    """Monotone nondecreasing piecewise function of degree <= 2, possibly
+    with upward jumps between pieces."""
+    xs = np.concatenate([[0.0], np.sort(rng.uniform(1.0, 50.0, n_pieces - 1))])
+    coeffs, val = [], float(rng.uniform(0, 5))
+    for i in range(n_pieces):
+        ln = (xs[i + 1] - xs[i]) if i + 1 < n_pieces else 10.0
+        c1 = float(rng.uniform(0, 5)) if rng.random() < 0.8 else 0.0
+        c2 = float(rng.uniform(0, 0.5)) if quad and rng.random() < 0.6 else 0.0
+        coeffs.append([val, c1, c2])
+        val = val + c1 * ln + c2 * ln * ln
+        if jumps and rng.random() < 0.3:
+            val += float(rng.uniform(1, 20))
+    # a flat tail: levels above its value are never reached
+    return PPoly(np.append(xs, 55.0), coeffs + [[val]])
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# ------------------------------------------------------------ ppoly_eval ----
+@pytest.mark.parametrize("n_fns,n_q", [(1, 7), (4, 64), (13, 200), (32, 128)])
+def test_eval_matches_reference(n_fns, n_q):
+    rng = np.random.default_rng(n_fns * 100 + n_q)
+    starts, coeffs = ops.pack_ppolys_np(_random_ppolys(rng, n_fns))
+    q = rng.uniform(-1.0, 60.0, (n_fns, n_q)).astype(np.float32)
+    got = ops.ppoly_eval(torch.from_numpy(starts), torch.from_numpy(coeffs),
+                         torch.from_numpy(q))
+    want = ref_ops.ppoly_eval(starts, coeffs, q, use_pallas=False)
+    assert got.dtype == torch.float32 and got.shape == (n_fns, n_q)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_eval_matches_exact_ppoly():
+    rng = np.random.default_rng(5)
+    fns = _random_ppolys(rng, 9)
+    starts, coeffs = ops.pack_ppolys_np(fns)
+    q = rng.uniform(-1.0, 60.0, (9, 50)).astype(np.float32)
+    out = _np(ops.ppoly_eval(starts, coeffs, q))
+    exact = np.stack([f(q[i].astype(np.float64)) for i, f in enumerate(fns)])
+    assert np.all(np.abs(out - exact) / np.maximum(1.0, np.abs(exact)) < 5e-4)
+
+
+def test_eval_padding_rows_and_duplicate_starts():
+    """All-padding rows and repeated starts (jumps) resolve as in the
+    reference: the count of ``start <= t`` picks the LAST duplicate."""
+    rng = np.random.default_rng(3)
+    starts = np.full((4, 5), 1e30, np.float32)
+    coeffs = rng.uniform(-2, 2, (4, 5, 3)).astype(np.float32)
+    starts[0, :3] = [0.0, 5.0, 5.0]           # duplicate start
+    starts[1, :1] = [2.0]                     # single piece, queries before it
+    starts[3, :5] = [0.0, 1.0, 1.0, 1.0, 9.0]
+    q = np.array([[-1.0, 0.0, 5.0, 7.5],
+                  [0.0, 1.0, 2.0, 3.0],
+                  [0.0, 1.0, 2.0, 3.0],      # row 2: padding only
+                  [0.5, 1.0, 8.9, 9.0]], np.float32)
+    got = _np(ops.ppoly_eval(starts, coeffs, q))
+    want = np.asarray(ref_ops.ppoly_eval(starts, coeffs, q, use_pallas=False))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# -------------------------------------------------------- ppoly_min_eval ----
+@pytest.mark.parametrize("seed,B,F,T", [(0, 3, 3, 32), (1, 5, 4, 130),
+                                        (2, 9, 6, 77)])
+def test_min_eval_matches_reference(seed, B, F, T):
+    rng = np.random.default_rng(seed)
+    rows = [_random_ppolys(rng, F, max_pieces=5, max_deg=2) for _ in range(B)]
+    for i in range(0, B, 2):                 # ragged rows: absent slots
+        k = int(rng.integers(1, F + 1))
+        rows[i] = rows[i][:k] + [None] * (F - k)
+    rows[-1] = [None] * F                    # a row with every slot absent
+    starts, coeffs = ops.pack_ppoly_grid(rows)
+    q = rng.uniform(-2.0, 60.0, (B, T)).astype(np.float32)
+    v_t, a_t = ops.ppoly_min_eval(starts, coeffs, q)
+    v_r, a_r = ref_ops.ppoly_min_eval(starts, coeffs, q, use_pallas=False)
+    assert a_t.dtype == torch.int32
+    np.testing.assert_allclose(_np(v_t), np.asarray(v_r), rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(_np(a_t), np.asarray(a_r))
+
+
+def test_min_eval_ties_keep_lowest_slot():
+    f = PPoly.pwlinear([0.0, 10.0], [0.0, 10.0])
+    starts, coeffs = ops.pack_ppoly_grid([[None, f, f, f]])
+    q = np.linspace(0.0, 12.0, 7, dtype=np.float32)[None]
+    vals, arg = ops.ppoly_min_eval(starts, coeffs, q)
+    v_r, a_r = ref_ops.ppoly_min_eval(starts, coeffs, q, use_pallas=False)
+    assert np.all(_np(arg) == 1)
+    np.testing.assert_array_equal(_np(arg), np.asarray(a_r))
+    np.testing.assert_allclose(_np(vals), np.asarray(v_r), rtol=RTOL, atol=ATOL)
+
+
+# -------------------------------------------------- ppoly_first_crossing ----
+def test_first_crossing_linear_and_never_reached():
+    fns = [PPoly.pwlinear([0.0, 10.0, 20.0], [0.0, 5.0, 30.0]),
+           PPoly.step([0.0, 7.0], [0.0, 9.0]),
+           PPoly.pwlinear([0.0, 4.0], [1.0, 1.0])]  # flat: most levels unreachable
+    starts, coeffs = ops.pack_ppolys_np(fns)
+    y = np.array([[0.0, 4.0, 17.0, 30.0],
+                  [0.0, 5.0, 9.0, 10.0],
+                  [0.5, 1.0, 2.0, 50.0]], np.float32)
+    got = _np(ops.ppoly_first_crossing(starts, coeffs, y))
+    want = np.asarray(ref_ops.ppoly_first_crossing(starts, coeffs, y,
+                                                   use_pallas=False))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert got[2, 3] >= 1e30 and got[1, 3] >= 1e30
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_first_crossing_quadratic_matches_reference(seed):
+    rng = np.random.default_rng(seed)
+    fns = [_random_monotone(rng, int(rng.integers(1, 7))) for _ in range(11)]
+    starts, coeffs = ops.pack_ppolys_np(fns, max_coef=3)
+    hi = np.array([f(np.array([60.0]))[0] for f in fns])
+    y = (rng.uniform(-0.2, 1.3, (11, 40)) * hi[:, None]).astype(np.float32)
+    got = _np(ops.ppoly_first_crossing(starts, coeffs, y))
+    want = np.asarray(ref_ops.ppoly_first_crossing(starts, coeffs, y,
+                                                   use_pallas=False))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert (got >= 1e30).any()               # some levels are never reached
+
+
+def test_first_crossing_rejects_high_degree():
+    f = PPoly(np.array([0.0]), [np.array([0.0, 1.0, 1.0, 1.0])])  # cubic
+    starts, coeffs = ops.pack_ppolys_np([f])
+    with pytest.raises(ValueError, match="degree <= 2"):
+        ops.ppoly_first_crossing(starts, coeffs, np.zeros((1, 1), np.float32))
+
+
+def test_packers_match_reference():
+    rng = np.random.default_rng(9)
+    fns = _random_ppolys(rng, 5)
+    ref_fns = [RefPPoly(f.starts, f.coeffs) for f in fns]
+    for a, b in zip(ops.pack_ppolys_np(fns), ref_ops.pack_ppolys_np(ref_fns)):
+        np.testing.assert_array_equal(a, b)
+    grid = [[fns[0], None], [fns[1], fns[2]]]
+    ref_grid = [[ref_fns[0], None], [ref_fns[1], ref_fns[2]]]
+    for a, b in zip(ops.pack_ppoly_grid(grid), ref_ops.pack_ppoly_grid(ref_grid)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    planes = [rng.uniform(size=(3, 4)) for _ in range(3)]
+    for a, b in zip(ops.pack_bpl_np(*planes), ref_ops.pack_bpl_np(*planes)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_cpu_tensors_never_launch_a_kernel():
+    kernel.reset_launches()
+    starts, coeffs = ops.pack_ppolys_np(_random_ppolys(np.random.default_rng(1), 3))
+    ops.ppoly_eval(starts, coeffs, np.zeros((3, 4), np.float32))
+    assert kernel.launches == {"ppoly_eval": 0, "ppoly_min_eval": 0,
+                               "ppoly_first_crossing": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    z = torch.zeros((2, 3))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel.ppoly_eval_cuda(z, torch.zeros((2, 3, 2)), z)
+
+
+# ------------------------------------------------- CUDA kernels on a card ----
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _ragged_case(rng, B, F, P, K, T):
+    starts = np.sort(rng.uniform(0.0, 50.0, (B, F, P)), -1).astype(np.float32)
+    starts[..., 0] = 0.0
+    n_real = rng.integers(1, P + 1, (B, F))
+    for b in range(B):
+        for f in range(F):
+            starts[b, f, n_real[b, f]:] = 1e30
+    starts[rng.random((B, F)) < 0.2, :] = 1e30          # absent slots
+    coeffs = rng.uniform(0.0, 3.0, (B, F, P, K)).astype(np.float32)
+    q = rng.uniform(-2.0, 60.0, (B, T)).astype(np.float32)
+    return starts, coeffs, q
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("seed,B,T,P,K", [(0, 13, 200, 7, 1), (1, 37, 129, 64, 3),
+                                          (2, 5, 1000, 3, 2)])
+def test_cuda_kernels_match_plain(cuda, seed, B, T, P, K):
+    rng = np.random.default_rng(seed)
+    F = int(rng.integers(1, 7))
+    s3, c4, q = _ragged_case(rng, B, F, P, K, T)
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    got = kernel.ppoly_eval_cuda(dev(s3[:, 0]), dev(c4[:, 0]), dev(q))
+    want = ops.ppoly_eval_ref(dev(s3[:, 0]), dev(c4[:, 0]), dev(q))
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    v, a = kernel.ppoly_min_eval_cuda(dev(s3), dev(c4), dev(q))
+    v_r, a_r = ops.ppoly_min_eval_ref(dev(s3), dev(c4), dev(q))
+    torch.testing.assert_close(v, v_r, rtol=RTOL, atol=ATOL)
+    assert torch.equal(a, a_r)
+    c3 = c4[:, 0, :, :min(K, 3)]
+    cross = kernel.ppoly_first_crossing_cuda(dev(s3[:, 0]), dev(c3), dev(q))
+    cross_r = ops.ppoly_first_crossing_ref(dev(s3[:, 0]), dev(c3), dev(q))
+    torch.testing.assert_close(cross, cross_r, rtol=RTOL, atol=ATOL)
+    torch.cuda.synchronize()
