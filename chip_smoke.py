@@ -3,18 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, holds each
-against its plain PyTorch version, drives the port's main path — compile ->
-prepare -> fused sweep -> Report, with the Report's curve queries — on the
-card, checks the results, and times the kernels.  Every phase prints one
-JSON line; any failure raises and ends the run with a non-zero exit.  The
-last line is ``{"ok": true, "device": {...}}``.
+Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
+per source, all started together), holds each against its plain PyTorch
+version, drives the port's two paths on the card — the analysis path
+compile -> prepare -> fused sweep -> Report with the Report's curve queries,
+and the language-model serving path (prefill through the flash kernel,
+cached decode through the serving launcher) at yi-9b's full width — checks
+the results, and times the kernels.  Every phase prints one JSON line; any
+failure raises and ends the run with a non-zero exit.  The last line is
+``{"ok": true, "device": {...}}``.
 
-Phases: env, build, kernels (random ragged shapes), sweep_fig7 (B = 600,
-the paper's Fig. 7 sweep), sweep_b10k_ramped (B = 10,000 with ramped link
-allocations), queries (T = 1024 curve queries on the B = 10,000 Report),
-then the per-kernel line with launches on the main path, errors and times
-at the main path's shapes.
+Phases: env, build, kernels (random ragged shapes), flash_kernels (random
+attention shapes), sweep_fig7 (B = 600, the paper's Fig. 7 sweep),
+sweep_b10k_ramped (B = 10,000 with ramped link allocations), queries
+(T = 1024 curve queries on the B = 10,000 Report), lm_prefill (yi-9b, bf16,
+B = 2, S = 4096), lm_serve (``repro_torch.launch.serve`` with yi-9b, 8
+requests), then the per-kernel line with launches on each path, errors and
+times at each path's shapes.  The launch counts are set to 0 just before
+each path is driven and read just after it.
 
 Imports nothing of JAX or of the reference package.  Exits with code 2 and
 prints no result when no CUDA device is present or when the port's sources
@@ -36,6 +42,9 @@ SRC = ROOT / "src"
 #: (non-tensor-core) FLOP/s, used for the bound of each kernel
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet), the bound of
+#: the flash kernel's bf16 work at the prefill shape
+PEAK_BF16_FLOPS = 989e12
 
 TOL = 1e-5          # kernel vs plain version: rtol/atol
 GOLDEN = {0.50: 297.645317854579, 0.95: 209.23437781819948}
@@ -49,6 +58,15 @@ KERNELS = {
     "ppoly_first_crossing": "src/repro/kernels/ppoly_eval/kernel.py:128",
 }
 SOURCE = "src/repro_torch/csrc/ppoly_eval.cu"
+FLASH = {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:85"}
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 0.03}   # tests/test_kernel_flash_attention.py
+FLASH_REL_L2 = {"float32": 1e-5, "bfloat16": 4e-3}   # relative L2 vs the f32 result
+BF16_HALF_STEP = 2.0 ** -8          # half a bf16 step, relative to the value
+LM_ARCH = "yi-9b"
+LM_BATCH, LM_SEQ = 2, 4096          # the train_4k length
+SERVE_TOL = 5e-2                    # prefill vs decode logits, relative L2
 
 
 def emit(phase: str, **kv) -> None:
@@ -120,32 +138,36 @@ def check_torch_report(rep, what: str) -> None:
 
 # ------------------------------------------------ recording the main path ----
 class Recorder:
-    """Wraps the three kernel wrappers while the main path runs and keeps
-    every call's inputs and outputs, so each can be held against the plain
-    version afterwards.  The launch counts stay in the wrappers."""
+    """Wraps kernel wrappers (``<name>_cuda`` of ``module``) while a path
+    runs and keeps every call's inputs, options and outputs, so each can be
+    held against the plain version afterwards.  The launch counts stay in
+    the wrappers."""
 
-    def __init__(self, kernel):
-        self.kernel = kernel
+    def __init__(self, module, names):
+        self.module = module
+        self.names = list(names)
         self.calls: list[tuple[str, tuple, object]] = []
+        self.kwargs: list[dict] = []
         self._orig = {}
 
     def __enter__(self):
-        for name in KERNELS:
+        for name in self.names:
             attr = f"{name}_cuda"
-            orig = getattr(self.kernel, attr)
+            orig = getattr(self.module, attr)
             self._orig[attr] = orig
 
-            def shim(*args, _name=name, _orig=orig):
-                out = _orig(*args)
+            def shim(*args, _name=name, _orig=orig, **kw):
+                out = _orig(*args, **kw)
                 self.calls.append((_name, args, out))
+                self.kwargs.append(kw)
                 return out
 
-            setattr(self.kernel, attr, shim)
+            setattr(self.module, attr, shim)
         return self
 
     def __exit__(self, *exc):
         for attr, orig in self._orig.items():
-            setattr(self.kernel, attr, orig)
+            setattr(self.module, attr, orig)
         return False
 
 
@@ -237,12 +259,23 @@ def phase_env():
 
 
 def phase_build():
-    from repro_torch.kernels.ppoly_eval import kernel
+    """Both kernel libraries at once: one nvcc per source, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ppoly_eval import kernel as pe
+
+    def one(mod):
+        t0 = time.perf_counter()
+        lib = mod.library()
+        return {"seconds": time.perf_counter() - t0, "library": str(lib._name),
+                "flags": list(mod.NVCC_FLAGS)}
 
     t0 = time.perf_counter()
-    lib = kernel.library()
-    emit("build", seconds=time.perf_counter() - t0, library=str(lib._name),
-         flags=list(kernel.NVCC_FLAGS))
+    with ThreadPoolExecutor(2) as ex:
+        futs = {"ppoly_eval": ex.submit(one, pe), "flash_attention": ex.submit(one, fa)}
+        libs = {name: f.result() for name, f in futs.items()}
+    emit("build", seconds=time.perf_counter() - t0, libraries=libs)
 
 
 def phase_kernels():
@@ -293,6 +326,239 @@ def phase_kernels():
             worst[name] = max(worst[name], hold_against_plain(name, args, out))
             cases += 1
     emit("kernels", cases=cases, tol=TOL, max_abs_err=worst)
+
+
+# ------------------------------------------------------ flash attention ----
+def attended_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through, summed over the S rows."""
+    total = 0
+    for i in range(S):
+        hi = i + 1 if causal else S
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def flash_bound(q, k, v, causal: bool, window) -> tuple[float, str]:
+    """max(bytes / memory rate, 4 B H D pairs / bf16 tensor-core rate): q, k
+    and v read once, the output written once."""
+    B, H, S, D = q.shape
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ops = 4 * B * H * D * attended_pairs(S, causal, window)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_err(out, args, kw) -> dict:
+    """One flash call against the plain version on the same inputs, taken in
+    float32 before its final cast (as tests/test_kernel_flash_attention.py
+    holds the bf16 kernel): two bf16 roundings of nearly equal values may lie
+    a whole bf16 step apart.  Three bars: the max abs error; for bf16, every
+    element within half a bf16 step of the float32 result plus the float32
+    bar (``elem_ratio`` <= 1); and the relative L2 error over the call."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref
+
+    want = attention_ref(*(a.float() for a in args), **kw)
+    name = str(out.dtype).split(".")[-1]
+    diff = (out.float() - want).abs()
+    err = float(diff.max())
+    rel = float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want))
+    ratio = float("nan")
+    if out.dtype == torch.bfloat16:
+        ratio = float((diff / (BF16_HALF_STEP * want.abs() + FLASH_TOL["float32"])).max())
+    del want, diff
+    what = f"flash_attention {tuple(args[0].shape)} {out.dtype} {kw}"
+    check(err < FLASH_TOL[name], f"{what}: max abs error {err}")
+    check(rel <= FLASH_REL_L2[name], f"{what}: relative L2 error {rel}")
+    check(not ratio > 1.0, f"{what}: an element off by {ratio} x its bf16 bar")
+    return {"max_abs_err": err, "rel_l2": rel, "elem_ratio": ratio}
+
+
+def worst_of(errs: list[dict]) -> dict:
+    """Elementwise worst of several :func:`flash_err` results."""
+    out = {}
+    for key in ("max_abs_err", "rel_l2", "elem_ratio"):
+        vals = [e[key] for e in errs if e[key] == e[key]]
+        out[key] = max(vals) if vals else None
+    return out
+
+
+def phase_flash_kernels():
+    """Seeded random shapes: MHA, GQA groups 2 and 8, MQA; D in {16, 64,
+    120, 128}; S in {1, 37, 128, 300}; window None or 32; causal=False
+    twice; float32 and bf16."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    heads = {"mha": (4, 4), "gqa2": (4, 2), "gqa8": (16, 2), "mqa": (4, 1)}
+    errs = {"float32": [], "bfloat16": []}
+    shapes = [(hk, D, S, w, True) for hk in heads for D in (16, 64, 120, 128)
+              for S in (1, 37, 128, 300) for w in (None, 32)]
+    shapes += [("gqa2", 120, 300, None, False), ("mqa", 64, 37, 32, False)]
+    for hk, D, S, w, causal in shapes:
+        H, Hkv = heads[hk]
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((2, H, S, D), generator=gen, device="cuda").to(dtype)
+            k = torch.randn((2, Hkv, S, D), generator=gen, device="cuda").to(dtype)
+            v = torch.randn((2, Hkv, S, D), generator=gen, device="cuda").to(dtype)
+            kw = {"causal": causal, "window": w}
+            out = fa.flash_attention_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            errs[str(dtype).split(".")[-1]].append(flash_err(out, (q, k, v), kw))
+    worst = {name: worst_of(e) for name, e in errs.items()}
+    emit("flash_kernels", cases=sum(map(len, errs.values())), tol=FLASH_TOL,
+         rel_l2_tol=FLASH_REL_L2, elem_bar=f"2**-8 |want| + {FLASH_TOL['float32']}",
+         max_abs_err={n: w["max_abs_err"] for n, w in worst.items()},
+         rel_l2={n: w["rel_l2"] for n, w in worst.items()},
+         elem_ratio=worst["bfloat16"]["elem_ratio"])
+
+
+def phase_lm_prefill():
+    """yi-9b at full width in bf16, weights from init_params(seed=0) on the
+    card; prefill of B x S seeded tokens, every flash call recorded and held
+    against the plain version.  Returns (cfg, model, launches, errors, the
+    first call's inputs)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ppoly_eval import kernel as pe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+
+    cfg = get_config(LM_ARCH)
+    init_s, tree = host_s(lambda: init_params(cfg, seed=0))
+    model = T.DecoderLM(cfg, tree)
+    del tree
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                                     generator=gen, device="cuda")}
+    with torch.inference_mode():
+        with Recorder(fa, ["flash_attention"]) as rec:
+            fa.reset_launches()
+            pe.reset_launches()
+            cold_s, last = host_s(lambda: T.prefill(model, cfg, batch))
+            launches = {**fa.launches, **pe.launches}
+        check(launches["flash_attention"] == cfg.n_layers,
+              f"{launches['flash_attention']} flash launches, {cfg.n_layers} layers")
+        check(tuple(last.shape) == (LM_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(last).all()), "prefill logits")
+        errs = [flash_err(out, args, kw)
+                for (_n, args, out), kw in zip(rec.calls, rec.kwargs)]
+        first = (rec.calls[0][1], rec.kwargs[0])
+        del rec
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        warm_s, last2 = host_s(lambda: T.prefill(model, cfg, batch))
+        peak = torch.cuda.max_memory_allocated()
+        drift = float((last2.float() - last.float()).abs().max())
+    emit("lm_prefill", arch=cfg.name, dtype=cfg.dtype, batch=LM_BATCH,
+         seq=LM_SEQ, n_params=cfg.n_params(), weight_bytes=weight_bytes,
+         init_s=init_s, cold_s=cold_s, warm_s=warm_s,
+         tok_s=LM_BATCH * LM_SEQ / warm_s, peak_memory_bytes=peak,
+         launches=launches, flash_calls=len(errs), **worst_of(errs),
+         tol=FLASH_TOL["bfloat16"], rel_l2_tol=FLASH_REL_L2["bfloat16"],
+         rerun_max_abs_diff=drift)
+    return cfg, model, launches, worst_of(errs)["max_abs_err"], first
+
+
+def phase_lm_serve(cfg, model):
+    """The serving launcher as a user calls it, then prefill of the same
+    prompts (S = 32, ragged for the kernel) against the decode path's
+    logits after the last prompt token."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ppoly_eval import kernel as pe
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    fa.reset_launches()
+    pe.reset_launches()
+    out = serve.main(["--arch", LM_ARCH, "--no-smoke"])
+    launches = {**fa.launches, **pe.launches}
+    gen = out["continuations"]
+    check(gen.shape == (8, 16) and out["requests"] == 8, f"served {gen.shape}")
+    with torch.inference_mode(), Recorder(fa, ["flash_attention"]) as rec:
+        last = T.prefill(model, cfg, {"tokens": torch.as_tensor(
+            out["prompts"], device="cuda")}).float().cpu()
+        errs = [flash_err(o, args, kw) for (_n, args, o), kw in zip(rec.calls, rec.kwargs)]
+    dec = out["prompt_logits"]
+    check(bool(torch.isfinite(dec).all()), "decode logits not finite")
+    rel = float(torch.linalg.vector_norm(last - dec) / torch.linalg.vector_norm(dec))
+    check(rel < SERVE_TOL, f"prefill vs decode logits: relative L2 {rel}")
+    agree = float((last.argmax(-1) == dec.argmax(-1)).float().mean())
+    trace = trace_decode(cfg, model, out["requests"],
+                         out["prompt_len"] + out["generated"])
+    emit("lm_serve", arch=out["arch"], requests=out["requests"],
+         prompt_len=out["prompt_len"], generated=out["generated"],
+         wall_s=out["wall_s"], tok_s=out["tok_s"],
+         median_step_ms=out["median_step_ms"], sample=out["sample"],
+         launches=launches, crosscheck_rel_l2=rel, crosscheck_tol=SERVE_TOL,
+         crosscheck_argmax_agree=agree, crosscheck_flash_calls=len(errs),
+         **{f"crosscheck_flash_{k}": v for k, v in worst_of(errs).items()},
+         decode_trace=trace)
+
+
+def trace_decode(cfg, model, batch: int, context: int, steps: int = 3) -> dict:
+    """torch.profiler over a few eager decode steps: host time, device busy
+    time (the sum of kernel times) and kernels per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, batch, context)
+        tok = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
+        T.decode_step(model, cfg, cache, {"tokens": tok}, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(1, steps + 1):
+                T.decode_step(model, cfg, cache, {"tokens": tok}, t)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) / steps
+    # device-side events (kernels, copies, sets) of the one stream; none if
+    # the profiler traced no device activity
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / steps / 1e3
+    return {"steps": steps, "host_ms_per_step": host * 1e3,
+            "device_busy_ms_per_step": busy if kernels else None,
+            "idle_share": 1.0 - busy / (host * 1e3) if kernels else None,
+            "kernels_per_step": len(kernels) / steps}
+
+
+def flash_row(launches: int, err: float, first) -> dict:
+    """Times at the lm_prefill shape: the kernel (CUDA events, the smaller
+    of two runs around the plain version), the plain version, and
+    scaled_dot_product_attention as the yardstick."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    (q, k, v), kw = first
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=10)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=3)
+    ms2 = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=10)
+    check(kw["window"] is None and kw["causal"], f"prefill call options {kw}")
+    try:
+        lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
+        lib_fn()
+    except TypeError:            # a torch without enable_gqa: repeat K and V
+        g = q.shape[1] // k.shape[1]
+        kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, kr, vr, is_causal=True)
+    library_ms = cuda_ms(lib_fn, iters=10)
+    b_ms, b_by = flash_bound(q, k, v, kw["causal"], kw["window"])
+    return {**FLASH, "launches": launches, "max_abs_err": err,
+            "ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms,
+            "shape": {"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)}}
 
 
 def phase_sweep_fig7(paper):
@@ -398,23 +664,31 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     torch.cuda.set_device(0)
+    # the plain versions are the reference: full float32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import gc
 
     from repro_torch.analysis import scenarios
     from repro_torch.configs import paper_workflow as paper
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ppoly_eval import kernel, ref
 
     smi = phase_env()
     phase_build()
     phase_kernels()
+    phase_flash_kernels()
 
-    # ---- the main path, counted: sweeps and the Report's curve queries ----
-    with Recorder(kernel) as rec:
+    # ---- the analysis path, counted: sweeps and the Report's curve queries ----
+    with Recorder(kernel, KERNELS) as rec:
         kernel.reset_launches()
+        fa.reset_launches()
         phase_sweep_fig7(paper)
         rep = phase_sweep_b10k(paper, scenarios)
         shapes = phase_queries(rep)
         torch.cuda.synchronize()
-        launches = dict(kernel.launches)
+        launches = {**kernel.launches, **fa.launches}
     errs = {n: 0.0 for n in KERNELS}
     for name, args, out in rec.calls:
         errs[name] = max(errs[name], hold_against_plain(name, args, out))
@@ -442,7 +716,20 @@ def main() -> int:
                      "shape": {"starts": list(args[0].shape),
                                "coeffs": list(args[1].shape),
                                "q": list(args[2].shape)}})
-    emit("timing", peak_memory_bytes=torch.cuda.max_memory_allocated())
+    analysis_peak = torch.cuda.max_memory_allocated()
+    del rec, rep, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the serving path: prefill, then the launcher's cached decode ----
+    cfg, model, lm_launches, flash_errs, first = phase_lm_prefill()
+    phase_lm_serve(cfg, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.append(flash_row(lm_launches["flash_attention"], flash_errs, first))
+    emit("timing", analysis_peak_memory_bytes=analysis_peak,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,14 +18,12 @@ tensors to the plain versions in :mod:`.ref`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
+
+from ..build import build, build_dir, require_card
 
 __all__ = ["NVCC_FLAGS", "SOURCES", "build_dir", "launches", "library",
            "ppoly_eval_cuda", "ppoly_first_crossing_cuda",
@@ -53,46 +51,13 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def build_dir() -> Path:
-    """``build/repro_torch`` at the root of the checkout."""
-    return _PKG.parents[1] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and Path(root, "bin", "nvcc").is_file():
-            return str(Path(root, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the ppoly_eval kernels")
-
-
-def _build() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    out = build_dir() / f"ppoly_eval_{h.hexdigest()[:16]}.so"
-    if out.is_file():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)      # atomic: concurrent builders agree on the file
-    return out
-
-
 def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
+            require_card()
+            lib = ctypes.CDLL(str(build("ppoly_eval", SOURCES, NVCC_FLAGS)))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.ppoly_eval_launch.argtypes = [p, p, p, p, i, i, i, i, p]
             lib.ppoly_min_eval_launch.argtypes = [p, p, p, p, p,

@@ -73,3 +73,109 @@ def test_kernel_sources_and_build_dir():
 
     assert kernel.SOURCES[0].is_file()
     assert kernel.build_dir() == ROOT / "build" / "repro_torch"
+
+
+def test_cpu_lm_serving_loads_neither_jax_nor_repro():
+    code = """
+import sys
+import torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
+from repro_torch.models.common import init_params
+cfg = get_smoke_config("yi-9b")
+model = T.DecoderLM(cfg, init_params(cfg, seed=0, device="cpu"))
+with torch.inference_mode():
+    T.prefill(model, cfg, {"tokens": torch.zeros((2, 37), dtype=torch.long)})
+serve.main(["--device", "cpu", "--arch", "h2o-danube-3-4b", "--gen-len", "4"])
+from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.ppoly_eval import kernel as pe
+assert fa._lib is None and pe._lib is None, "a CPU run built a CUDA library"
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_lm_default_device_is_the_card(monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+    from repro_torch.models.convert import params_from_arrays
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("yi-9b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "yi-9b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_arrays({}, cfg)
+    # the kernel is built only for a card: without one the build raises
+    # before nvcc is looked for
+    monkeypatch.setattr(fa, "_lib", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fa.library()
+    assert fa._lib is None
+
+
+def test_flash_kernel_source_and_build_dir():
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    assert fa.SOURCES == (PORT / "csrc" / "flash_attention.cu",)
+    assert fa.SOURCES[0].is_file()
+    assert fa.build_dir() == ROOT / "build" / "repro_torch"
+    assert "arch=compute_90a,code=sm_90a" in fa.NVCC_FLAGS
+    assert not any("fast_math" in f for f in fa.NVCC_FLAGS)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", [
+    (1, 2, 2, 64, 16, True, None),      # MHA
+    (2, 4, 2, 37, 64, True, None),      # GQA group 2, ragged S
+    (1, 8, 1, 300, 128, True, None),    # MQA
+    (2, 4, 2, 130, 120, True, 32),      # window, head_dim 120
+    (1, 4, 4, 100, 32, False, None),    # not causal, ragged S
+])
+def test_flash_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, causal, window):
+    """The CUDA kernel against its plain version's float32 result: max abs
+    2e-5 in float32, 0.03 in bf16 (the bars of
+    tests/test_kernel_flash_attention.py); in bf16 also every element within
+    half a bf16 step plus 2e-5, and relative L2 at most 4e-3."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    q = torch.randn((B, H, S, D), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device=cuda).to(dtype)
+    before = fa.launches["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == before + 1
+    # the plain version in float32, before its cast to bf16
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 0.03
+    diff = (got.float() - want).abs()
+    assert float(diff.max()) < tol
+    if dtype == torch.bfloat16:
+        assert bool((diff <= 2.0 ** -8 * want.abs() + 2e-5).all())
+        assert float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want)) <= 4e-3
