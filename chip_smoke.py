@@ -5,22 +5,26 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (one nvcc
 per source, all started together), holds each against its plain PyTorch
-version, drives the port's two paths on the card — the analysis path
+version, drives the port's paths on the card — the analysis path
 compile -> prepare -> fused sweep -> Report with the Report's curve queries,
-and the language-model serving path (prefill through the flash kernel,
-cached decode through the serving launcher) at yi-9b's full width — checks
-the results, and times the kernels.  Every phase prints one JSON line; any
-failure raises and ends the run with a non-zero exit.  The last line is
-``{"ok": true, "device": {...}}``.
+the language-model serving path (prefill through the flash kernel, cached
+decode through the serving launcher) at yi-9b's full width, and RWKV-6
+serving (prefill and cached decode, every layer's wkv through the wkv6
+kernel) at rwkv6-1.6b's full width — checks the results, and times the
+kernels.  Every phase prints one JSON line; any failure raises and ends the
+run with a non-zero exit.  The last line is ``{"ok": true, "device": {...}}``.
 
 Phases: env, build, kernels (random ragged shapes), flash_kernels (random
-attention shapes), sweep_fig7 (B = 600, the paper's Fig. 7 sweep),
+attention shapes), wkv6_kernels (random wkv shapes, chunks 16, 32 and 64,
+one call at L = 32,768), sweep_fig7 (B = 600, the paper's Fig. 7 sweep),
 sweep_b10k_ramped (B = 10,000 with ramped link allocations), queries
 (T = 1024 curve queries on the B = 10,000 Report), lm_prefill (yi-9b, bf16,
 B = 2, S = 4096), lm_serve (``repro_torch.launch.serve`` with yi-9b, 8
-requests), then the per-kernel line with launches on each path, errors and
-times at each path's shapes.  The launch counts are set to 0 just before
-each path is driven and read just after it.
+requests), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096),
+lm_serve_rwkv (the launcher with rwkv6-1.6b, 8 requests), then the
+per-kernel line with launches on each path, errors and times at each
+path's shapes.  The launch counts are set to 0 just before each path is
+driven and read just after it.
 
 Imports nothing of JAX or of the reference package.  Exits with code 2 and
 prints no result when no CUDA device is present or when the port's sources
@@ -67,6 +71,18 @@ BF16_HALF_STEP = 2.0 ** -8          # half a bf16 step, relative to the value
 LM_ARCH = "yi-9b"
 LM_BATCH, LM_SEQ = 2, 4096          # the train_4k length
 SERVE_TOL = 5e-2                    # prefill vs decode logits, relative L2
+WKV6 = {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6/kernel.py:77"}
+WKV_ABS = 2e-3      # x max(1, max |plain|): the bar of tests/test_kernel_wkv6.py
+WKV_REL_L2 = 1e-4   # relative L2 vs the plain version, on y and on s_final
+RWKV_ARCH = "rwkv6-1.6b"
+#: rwkv6-1.6b, prefill vs decode logits: in bf16 at most twice the same
+#: run's batch-split floor (the prompts prefilled one by one against the
+#: batch) and never below 1e-3, in float32 (the same weights) at relative
+#: L2 1e-3
+RWKV_FLOOR_FACTOR = 2.0
+RWKV_F32_TOL = 1e-3
+WKV_LONG = (1, 32_768, 32, 64)      # B, L, H, N: the prefill_32k length
 
 
 def emit(phase: str, **kv) -> None:
@@ -137,6 +153,24 @@ def check_torch_report(rep, what: str) -> None:
 
 
 # ------------------------------------------------ recording the main path ----
+def kernel_modules():
+    """The binding module of each kernel library; each keeps its counts."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ppoly_eval import kernel as pe
+    from repro_torch.kernels.wkv6 import kernel as wk
+
+    return pe, fa, wk
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules():
+        mod.reset_launches()
+
+
+def read_launches() -> dict:
+    return {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
+
+
 class Recorder:
     """Wraps kernel wrappers (``<name>_cuda`` of ``module``) while a path
     runs and keeps every call's inputs, options and outputs, so each can be
@@ -259,11 +293,8 @@ def phase_env():
 
 
 def phase_build():
-    """Both kernel libraries at once: one nvcc per source, started together."""
+    """All kernel libraries at once: one nvcc per source, started together."""
     from concurrent.futures import ThreadPoolExecutor
-
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.ppoly_eval import kernel as pe
 
     def one(mod):
         t0 = time.perf_counter()
@@ -272,8 +303,9 @@ def phase_build():
                 "flags": list(mod.NVCC_FLAGS)}
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        futs = {"ppoly_eval": ex.submit(one, pe), "flash_attention": ex.submit(one, fa)}
+    mods = kernel_modules()
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futs = {mod.SOURCES[0].stem: ex.submit(one, mod) for mod in mods}
         libs = {name: f.result() for name, f in futs.items()}
     emit("build", seconds=time.perf_counter() - t0, libraries=libs)
 
@@ -377,9 +409,10 @@ def flash_err(out, args, kw) -> dict:
 
 
 def worst_of(errs: list[dict]) -> dict:
-    """Elementwise worst of several :func:`flash_err` results."""
+    """Elementwise worst of several :func:`flash_err` (or :func:`wkv_err`)
+    results."""
     out = {}
-    for key in ("max_abs_err", "rel_l2", "elem_ratio"):
+    for key in errs[0] if errs else ():
         vals = [e[key] for e in errs if e[key] == e[key]]
         out[key] = max(vals) if vals else None
     return out
@@ -424,7 +457,6 @@ def phase_lm_prefill():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.ppoly_eval import kernel as pe
     from repro_torch.models import transformer as T
     from repro_torch.models.common import init_params
 
@@ -438,10 +470,9 @@ def phase_lm_prefill():
                                      generator=gen, device="cuda")}
     with torch.inference_mode():
         with Recorder(fa, ["flash_attention"]) as rec:
-            fa.reset_launches()
-            pe.reset_launches()
+            reset_launches()
             cold_s, last = host_s(lambda: T.prefill(model, cfg, batch))
-            launches = {**fa.launches, **pe.launches}
+            launches = read_launches()
         check(launches["flash_attention"] == cfg.n_layers,
               f"{launches['flash_attention']} flash launches, {cfg.n_layers} layers")
         check(tuple(last.shape) == (LM_BATCH, cfg.vocab_size)
@@ -471,14 +502,12 @@ def phase_lm_serve(cfg, model):
     logits after the last prompt token."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.kernels.ppoly_eval import kernel as pe
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
-    fa.reset_launches()
-    pe.reset_launches()
+    reset_launches()
     out = serve.main(["--arch", LM_ARCH, "--no-smoke"])
-    launches = {**fa.launches, **pe.launches}
+    launches = read_launches()
     gen = out["continuations"]
     check(gen.shape == (8, 16) and out["requests"] == 8, f"served {gen.shape}")
     with torch.inference_mode(), Recorder(fa, ["flash_attention"]) as rec:
@@ -559,6 +588,246 @@ def flash_row(launches: int, err: float, first) -> dict:
             "ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms,
             "shape": {"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)}}
+
+
+# ------------------------------------------------------------------ wkv6 ----
+def wkv_inputs(gen, B: int, L: int, H: int, N: int, scale: float = 2.0):
+    """As tests/test_kernel_wkv6.py makes them: r, k, v normal, w =
+    exp(-exp(scale * normal)), u = 0.1 normal, s0 = 0.2 normal."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    r, k, v = randn(B, L, H, N), randn(B, L, H, N), randn(B, L, H, N)
+    w = torch.exp(-torch.exp(scale * randn(B, L, H, N)))
+    return r, k, v, w, 0.1 * randn(H, N), 0.2 * randn(B, H, N, N)
+
+
+def wkv_err(out, args, kw) -> dict:
+    """One wkv6 call against the plain version on the same inputs, on y and
+    on s_final: max abs error (and its ratio to the bar 2e-3 * max(1, max
+    |plain|)) and relative L2 error."""
+    import torch
+    from repro_torch.kernels.wkv6 import wkv_chunked_ref
+
+    res = {"max_abs_err": 0.0, "rel_l2": 0.0, "bar_ratio": 0.0}
+    what = f"wkv6 {tuple(args[0].shape)} {kw}"
+    for name, got, want in zip(("y", "s_final"), out, wkv_chunked_ref(*args, **kw)):
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{what}: {name} shape {tuple(got.shape)} or not finite")
+        diff = (got - want).abs()
+        err = float(diff.max())
+        bar = WKV_ABS * max(1.0, float(want.abs().max()))
+        rel = float(torch.linalg.vector_norm(diff) /
+                    torch.linalg.vector_norm(want).clamp(min=1e-30))
+        check(err <= bar, f"{what}: {name} max abs error {err} > {bar}")
+        check(rel <= WKV_REL_L2, f"{what}: {name} relative L2 error {rel}")
+        res = {"max_abs_err": max(res["max_abs_err"], err),
+               "rel_l2": max(res["rel_l2"], rel),
+               "bar_ratio": max(res["bar_ratio"], err / bar)}
+    return res
+
+
+def wkv_bound(args, chunk: int) -> tuple[float, str]:
+    """max(bytes / memory rate, float32 operations / float32 rate).  Bytes:
+    r, k, v, w, u and s0 read once, y and s_final written once.  Operations
+    per chunk of R tokens and head: the two state contractions (2 R N^2
+    each), 7 per pairwise decay term over the R(R-1)/2 pairs (subtract, exp,
+    two multiplies and an add for att; a multiply and an add for att . v),
+    and 8 per token and channel (log, diag, the two decays)."""
+    r, k, v, w, u, s0 = args
+    B, L, H, N = r.shape
+    nbytes = 4 * (5 * r.numel() + u.numel() + 2 * s0.numel())
+
+    def per_chunk(R: int) -> int:
+        return 4 * R * N * N + 7 * (R * (R - 1) // 2) * N + 8 * R * N
+
+    full, rem = divmod(L, chunk)
+    ops = B * H * (full * per_chunk(chunk) + (per_chunk(rem) if rem else 0))
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_wkv6_kernels():
+    """The cases of tests/test_kernel_wkv6.py (single chunk, state carried,
+    chunk 16, head size 64, ragged L, near-zero decays) plus one token and
+    the decode shape, at their chunk and again at chunk 64; then one call at
+    the prefill_32k length, which carries the state over 1,024 chunks."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as wk
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(1, 1, 1, 8, 32, 2.0), (1, 32, 1, 8, 32, 2.0), (2, 96, 2, 16, 32, 2.0),
+             (1, 80, 3, 8, 16, 2.0), (2, 64, 2, 64, 32, 2.0), (1, 50, 2, 8, 32, 2.0),
+             (1, 64, 1, 8, 32, 3.5), (8, 1, 32, 64, 32, 2.0)]
+    cases += [(B, L, H, N, 64, sc) for B, L, H, N, _c, sc in cases]
+    cases.append((*WKV_LONG, 32, 2.0))
+    errs = []
+    for B, L, H, N, chunk, scale in cases:
+        args = wkv_inputs(gen, B, L, H, N, scale)
+        out = wk.wkv6_cuda(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        errs.append(wkv_err(out, args, {"chunk": chunk}))
+    emit("wkv6_kernels", cases=len(cases), long_case=list(WKV_LONG), long=errs[-1],
+         tol=f"{WKV_ABS} max(1, max|plain|)", rel_l2_tol=WKV_REL_L2, **worst_of(errs))
+
+
+def phase_lm_prefill_rwkv():
+    """rwkv6-1.6b at full width in bf16, weights from init_params(seed=0)
+    on the card; prefill of B x S seeded tokens, every wkv6 call recorded
+    and held against the plain version.  Returns (cfg, model, launches,
+    worst error, the first call's inputs)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+
+    cfg = get_config(RWKV_ARCH)
+    init_s, tree = host_s(lambda: init_params(cfg, seed=0))
+    model = T.DecoderLM(cfg, tree)
+    del tree
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                                     generator=gen, device="cuda")}
+    with torch.inference_mode():
+        with Recorder(wk, ["wkv6"]) as rec:
+            reset_launches()
+            cold_s, last = host_s(lambda: T.prefill(model, cfg, batch))
+            launches = read_launches()
+        check(launches["wkv6"] == cfg.n_layers,
+              f"{launches['wkv6']} wkv6 launches, {cfg.n_layers} layers")
+        check(tuple(last.shape) == (LM_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(last).all()), "prefill logits")
+        errs = [wkv_err(out, args, kw)
+                for (_n, args, out), kw in zip(rec.calls, rec.kwargs)]
+        first = (rec.calls[0][1], rec.kwargs[0])
+        del rec
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        warm_s, last2 = host_s(lambda: T.prefill(model, cfg, batch))
+        peak = torch.cuda.max_memory_allocated()
+        drift = float((last2.float() - last.float()).abs().max())
+    emit("lm_prefill_rwkv", arch=cfg.name, dtype=cfg.dtype, batch=LM_BATCH,
+         seq=LM_SEQ, n_params=cfg.n_params(), weight_bytes=weight_bytes,
+         init_s=init_s, cold_s=cold_s, warm_s=warm_s,
+         tok_s=LM_BATCH * LM_SEQ / warm_s, peak_memory_bytes=peak,
+         launches=launches, wkv6_calls=len(errs), **worst_of(errs),
+         tol=f"{WKV_ABS} max(1, max|plain|)", rel_l2_tol=WKV_REL_L2,
+         rerun_max_abs_diff=drift)
+    return cfg, model, launches, worst_of(errs)["max_abs_err"], first
+
+
+def rel_l2(got, want) -> float:
+    import torch
+
+    got, want = got.float().cpu(), want.float().cpu()
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def phase_lm_serve_rwkv(cfg, model) -> int:
+    """The serving launcher with rwkv6-1.6b, then prefill of the same
+    prompts against the decode path's logits after the last prompt token.
+
+    In bf16 two prefills of the same prompts already differ by about 5e-2
+    (relative L2) when only the batch split, and so the shapes of the bf16
+    products, differ: the bf16 residual stream rounds the small differences
+    into whole bf16 steps, layer after layer.  So the bf16 decode is held
+    within ``RWKV_FLOOR_FACTOR`` times that floor, measured here, and the
+    same weights in float32 are held to ``RWKV_F32_TOL``.  Returns the wkv6
+    launches of the serving run."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    reset_launches()
+    out = serve.main(["--arch", RWKV_ARCH, "--no-smoke"])
+    launches = read_launches()
+    gen = out["continuations"]
+    steps = out["prompt_len"] + out["generated"]
+    check(gen.shape == (8, 16) and out["requests"] == 8, f"served {gen.shape}")
+    check(launches["wkv6"] == cfg.n_layers * steps,
+          f"{launches['wkv6']} wkv6 launches, {cfg.n_layers} layers x {steps} steps")
+    prompts = torch.as_tensor(out["prompts"], device="cuda")
+    with torch.inference_mode():
+        with Recorder(wk, ["wkv6"]) as rec:
+            last = T.prefill(model, cfg, {"tokens": prompts})
+            errs = [wkv_err(o, args, kw) for (_n, args, o), kw in zip(rec.calls, rec.kwargs)]
+        del rec
+        alone = torch.cat([T.prefill(model, cfg, {"tokens": prompts[i:i + 1]})
+                           for i in range(prompts.shape[0])])
+    dec = out["prompt_logits"]
+    check(bool(torch.isfinite(dec).all()), "decode logits not finite")
+    rel = rel_l2(dec, last)
+    floor = rel_l2(alone, last)
+    bar = max(RWKV_FLOOR_FACTOR * floor, RWKV_F32_TOL)
+    check(rel <= bar, f"bf16 prefill vs decode logits: relative L2 {rel} > {bar} "
+                      f"(batch-split floor {floor})")
+    agree = float((last.float().cpu().argmax(-1) == dec.argmax(-1)).float().mean())
+    # the same weights in float32: prefill against the cached decode
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = copy.deepcopy(model).float()
+    with torch.inference_mode():
+        last32 = T.prefill(m32, cfg32, {"tokens": prompts})
+        cache = T.init_cache(cfg32, prompts.shape[0], prompts.shape[1])
+        for t in range(prompts.shape[1]):
+            dec32, cache = T.decode_step(m32, cfg32, cache,
+                                         {"tokens": prompts[:, t:t + 1]}, t)
+    rel32 = rel_l2(dec32, last32)
+    check(rel32 < RWKV_F32_TOL, f"float32 prefill vs decode logits: relative L2 {rel32}")
+    bf16_vs_f32 = rel_l2(last, last32)
+    del m32, cache, last32, dec32
+    torch.cuda.empty_cache()
+    trace = trace_decode(cfg, model, out["requests"], steps)
+    emit("lm_serve_rwkv", arch=out["arch"], requests=out["requests"],
+         prompt_len=out["prompt_len"], generated=out["generated"],
+         wall_s=out["wall_s"], tok_s=out["tok_s"],
+         median_step_ms=out["median_step_ms"], sample=out["sample"],
+         launches=launches, crosscheck_rel_l2=rel, crosscheck_floor=floor,
+         crosscheck_tol=bar,
+         crosscheck_argmax_agree=agree, crosscheck_f32_rel_l2=rel32,
+         crosscheck_f32_tol=RWKV_F32_TOL, prefill_bf16_vs_f32_rel_l2=bf16_vs_f32,
+         crosscheck_wkv6_calls=len(errs),
+         **{f"crosscheck_wkv6_{k}": v for k, v in worst_of(errs).items()},
+         decode_trace=trace)
+    return launches["wkv6"]
+
+
+def wkv_row(launches: dict, err: float, first) -> dict:
+    """Times at the lm_prefill_rwkv shape (the kernel by CUDA events, the
+    smaller of two runs around the plain version), and at the decode shape
+    (B = 8, L = 1).  No single PyTorch call computes this recurrence, so no
+    library time."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import wkv_chunked_ref
+
+    args, kw = first
+    ms = cuda_ms(lambda: wk.wkv6_cuda(*args, **kw))
+    plain_ms = cuda_ms(lambda: wkv_chunked_ref(*args, **kw), iters=3)
+    ms2 = cuda_ms(lambda: wk.wkv6_cuda(*args, **kw))
+    b_ms, b_by = wkv_bound(args, kw["chunk"])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    r = args[0]
+    dec = wkv_inputs(gen, 8, 1, r.shape[2], r.shape[3])
+    dec_ms = cuda_ms(lambda: wk.wkv6_cuda(*dec, **kw), iters=100)
+    dec_plain_ms = cuda_ms(lambda: wkv_chunked_ref(*dec, **kw), iters=20)
+    dec_bound, dec_by = wkv_bound(dec, kw["chunk"])
+    return {**WKV6, "launches": sum(launches.values()), "launches_by_phase": launches,
+            "max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_note": "no single PyTorch call computes the wkv recurrence",
+            "shape": {"r": list(r.shape), "chunk": kw["chunk"], "dtype": str(r.dtype)},
+            "decode_shape": {"r": list(dec[0].shape), "ms": dec_ms,
+                             "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
+                             "bound_by": dec_by}}
 
 
 def phase_sweep_fig7(paper):
@@ -672,23 +941,22 @@ def main() -> int:
 
     from repro_torch.analysis import scenarios
     from repro_torch.configs import paper_workflow as paper
-    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ppoly_eval import kernel, ref
 
     smi = phase_env()
     phase_build()
     phase_kernels()
     phase_flash_kernels()
+    phase_wkv6_kernels()
 
     # ---- the analysis path, counted: sweeps and the Report's curve queries ----
     with Recorder(kernel, KERNELS) as rec:
-        kernel.reset_launches()
-        fa.reset_launches()
+        reset_launches()
         phase_sweep_fig7(paper)
         rep = phase_sweep_b10k(paper, scenarios)
         shapes = phase_queries(rep)
         torch.cuda.synchronize()
-        launches = {**kernel.launches, **fa.launches}
+        launches = read_launches()
     errs = {n: 0.0 for n in KERNELS}
     for name, args, out in rec.calls:
         errs[name] = max(errs[name], hold_against_plain(name, args, out))
@@ -712,7 +980,8 @@ def main() -> int:
                      "replaces": KERNELS[name], "launches": launches[name],
                      "max_abs_err": errs[name], "ms": min(ms, ms2),
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None,
+                     "library_ms": None, "library_note": "no single PyTorch "
+                     "call evaluates a piecewise polynomial",
                      "shape": {"starts": list(args[0].shape),
                                "coeffs": list(args[1].shape),
                                "q": list(args[2].shape)}})
@@ -728,6 +997,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows.append(flash_row(lm_launches["flash_attention"], flash_errs, first))
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- RWKV-6 serving: prefill, then the launcher's cached decode ----
+    cfg, model, rwkv_launches, wkv_errs, first = phase_lm_prefill_rwkv()
+    serve_launches = phase_lm_serve_rwkv(cfg, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.append(wkv_row({"lm_prefill_rwkv": rwkv_launches["wkv6"],
+                         "lm_serve_rwkv": serve_launches}, wkv_errs, first))
     emit("timing", analysis_peak_memory_bytes=analysis_peak,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(smi, flush=True)

@@ -76,9 +76,14 @@ VARIANTS: dict[str, dict] = {
 }
 
 
-#: variants the port does not honour: its flash kernel and the kernel's
-#: plain version compute scores and softmax in f32 whatever ``attn_f32`` says.
-UNSUPPORTED_VARIANTS = {"attn_bf16"}
+#: variants the port does not honour, with the reason: its flash kernel and
+#: the kernel's plain version compute scores and softmax in f32 whatever
+#: ``attn_f32`` says, and its wkv6 kernel is float32 only, like the TPU's.
+UNSUPPORTED_VARIANTS = {
+    "attn_bf16": "attention always computes in f32",
+    "rwkv_bf16": "the wkv recurrence always computes in f32 (the bf16 "
+                 "intra-chunk form is not ported yet)",
+}
 
 
 def apply_variants(cfg: ModelConfig, names: list[str]) -> ModelConfig:
@@ -90,7 +95,7 @@ def apply_variants(cfg: ModelConfig, names: list[str]) -> ModelConfig:
             raise KeyError(f"unknown variant {n!r}; choose from {sorted(VARIANTS)}")
         if n in UNSUPPORTED_VARIANTS:
             raise ValueError(f"variant {n!r} has no effect in this package: "
-                             "attention always computes in f32")
+                             f"{UNSUPPORTED_VARIANTS[n]}")
         overrides.update(VARIANTS[n])
     return dataclasses.replace(cfg, **overrides)
 

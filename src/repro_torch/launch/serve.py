@@ -1,11 +1,12 @@
-"""Serving launcher: batched prefill + decode with a shared KV cache.
+"""Serving launcher: batched prefill + decode with a shared KV/state cache.
 
-``python -m repro_torch.launch.serve --arch yi-9b --no-smoke``
+``python -m repro_torch.launch.serve --arch rwkv6-1.6b --no-smoke``
 
 A miniature serving loop: a batch of requests is prefilled token by token
-through the cached decode path, then decoded greedily, one token a step.
-The BottleMod progress monitor times the decode steps.  Runs on the CUDA
-card unless ``--device cpu`` is given.
+through the cached decode path (the KV cache of the attention families, the
+token-shift and wkv state of RWKV-6), then decoded greedily, one token a
+step.  The BottleMod progress monitor times the decode steps.  Runs on the
+CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from ..runtime.monitor import ProgressMonitor
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", choices=list_archs(), default="yi-9b",
-                    help="model (default yi-9b); the MoE, Mamba and RWKV-6 "
+    ap.add_argument("--arch", choices=list_archs(), default="rwkv6-1.6b",
+                    help="model (default rwkv6-1.6b); the MoE and Mamba "
                          "families are not served yet and raise")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,

@@ -1,2 +1,2 @@
-"""Language models of the torch port: the attention-only decoder families
-(dense, vlm, audio) with their serving entry points."""
+"""Language models of the torch port: the attention families (dense, vlm,
+audio) and RWKV-6, with their serving entry points."""

@@ -1,4 +1,5 @@
-"""Decoder LM for the attention-only families: dense, vlm (M-RoPE) and audio.
+"""Decoder LM for the attention families (dense, vlm with M-RoPE, audio) and
+RWKV-6.
 
 :class:`DecoderLM` holds one :class:`Block` per layer in an
 ``nn.ModuleList``.  The module-level functions keep the reference package's
@@ -11,8 +12,8 @@ names and arguments:
 ``params`` is a :class:`DecoderLM`.  Build one from a parameter tree in the
 reference layout: ``DecoderLM(cfg, init_params(cfg, seed=0))``, or
 :func:`repro_torch.models.convert.params_from_arrays` for the reference's
-own parameters.  Experts, Mamba and RWKV-6 mixers are not ported yet and
-raise ``NotImplementedError``.
+own parameters.  Experts and Mamba mixers are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from torch import nn
 from ..device import resolve_device
 from .attention import Attention, attn_decode, attn_forward
 from .common import ModelConfig, cross_entropy, rmsnorm
+from .rwkv import ChannelMix, TimeMix, rwkv_channel_mix, rwkv_init_state, rwkv_time_mix
 
 _NOT_PORTED = "not ported yet (ROADMAP queue 1, item 9)"
 
@@ -36,8 +38,9 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: mixture-of-experts FFN {_NOT_PORTED}")
     if cfg.ssm == "mamba" or cfg.attn_every:
         raise NotImplementedError(f"{cfg.name}: Mamba mixers {_NOT_PORTED}")
-    if cfg.ssm == "rwkv6":
-        raise NotImplementedError(f"{cfg.name}: RWKV-6 mixers {_NOT_PORTED}")
+    if cfg.rwkv_bf16:
+        raise NotImplementedError(f"{cfg.name}: the rwkv_bf16 variant (bf16 "
+                                  f"intra-chunk math) {_NOT_PORTED}")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -56,29 +59,54 @@ class DenseFFN(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm attention + dense FFN, one layer."""
+    """Pre-norm mixer + FFN, one layer; the kinds come from
+    ``cfg.layer_kind``: attention + dense FFN, or RWKV-6 time mix + channel
+    mix."""
 
-    def __init__(self, cfg: ModelConfig, p: dict):
+    def __init__(self, cfg: ModelConfig, p: dict, kind: dict):
         super().__init__()
         self.cfg = cfg
+        self.kind = kind
         self.norm_mixer = _param(p["norm_mixer"])
         self.norm_ffn = _param(p["norm_ffn"])
-        self.attn = Attention(**p["attn"])
-        self.ffn = DenseFFN(**p["ffn"])
+        if kind["mixer"] == "attn":
+            self.attn = Attention(**p["attn"])
+        else:
+            self.rwkv = TimeMix(**p["rwkv"])
+        if kind["ffn"] == "dense":
+            self.ffn = DenseFFN(**p["ffn"])
+        else:
+            self.cmix = ChannelMix(**p["cmix"])
+
+    def _ffn(self, h: torch.Tensor, state: dict | None = None) -> torch.Tensor:
+        hn = rmsnorm(h, self.norm_ffn, self.cfg.norm_eps)
+        if self.kind["ffn"] == "dense":
+            return h + self.ffn(hn)
+        y, st = rwkv_channel_mix(self.cmix, hn, self.cfg, state)
+        if state is not None:
+            state["shift"].copy_(st["shift"])
+        return h + y
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        y, _ = attn_forward(self.attn, rmsnorm(h, self.norm_mixer, cfg.norm_eps),
-                            cfg, positions)
-        h = h + y
-        return h + self.ffn(rmsnorm(h, self.norm_ffn, cfg.norm_eps))
+        hn = rmsnorm(h, self.norm_mixer, cfg.norm_eps)
+        if self.kind["mixer"] == "attn":
+            y, _ = attn_forward(self.attn, hn, cfg, positions)
+        else:
+            y, _ = rwkv_time_mix(self.rwkv, hn, cfg)
+        return self._ffn(h + y)
 
     def decode(self, h: torch.Tensor, c: dict, pos_idx: int) -> torch.Tensor:
+        """One token; ``c`` is this layer's cache (views), updated in place."""
         cfg = self.cfg
-        y, _, _ = attn_decode(self.attn, rmsnorm(h, self.norm_mixer, cfg.norm_eps),
-                              cfg, c["k"], c["v"], pos_idx)
-        h = h + y
-        return h + self.ffn(rmsnorm(h, self.norm_ffn, cfg.norm_eps))
+        hn = rmsnorm(h, self.norm_mixer, cfg.norm_eps)
+        if self.kind["mixer"] == "attn":
+            y, _, _ = attn_decode(self.attn, hn, cfg, c["k"], c["v"], pos_idx)
+            return self._ffn(h + y)
+        y, st = rwkv_time_mix(self.rwkv, hn, cfg, state=c["att"])
+        c["att"]["shift"].copy_(st["shift"])
+        c["att"]["wkv"].copy_(st["wkv"])
+        return self._ffn(h + y, c["cmix"])
 
 
 class DecoderLM(nn.Module):
@@ -105,7 +133,7 @@ class DecoderLM(nn.Module):
         self.final_norm = _param(params["final_norm"])
         blocks = params["blocks"]
         self.blocks = nn.ModuleList(
-            Block(cfg, _slice(blocks[f"pos{i}"], g))
+            Block(cfg, _slice(blocks[f"pos{i}"], g), cfg.layer_kind(i))
             for g in range(cfg.n_groups) for i in range(cfg.period))
 
     def embed_in(self, batch: dict) -> torch.Tensor:
@@ -163,16 +191,31 @@ def prefill(params: DecoderLM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch_size: int, context: int,
                device: "str | torch.device | None" = None) -> dict:
-    """Zero KV caches for every layer, stacked per period position:
-    ``{"pos{i}": {"k": (G, B, Hkv, kv_len, Dh), "v": ...}}``; a window model's
-    ``kv_len`` is ``min(context, window)`` (a ring buffer)."""
+    """Zero decode caches for every layer, stacked per period position (a
+    leading group axis G = ``n_groups``).  Attention: ``{"pos{i}": {"k":
+    (G, B, Hkv, kv_len, Dh), "v": ...}}``; a window model's ``kv_len`` is
+    ``min(context, window)`` (a ring buffer).  RWKV-6: ``{"pos{i}": {"att":
+    {"shift": (G, B, D), "wkv": (G, B, H, N, N) float32}, "cmix": {"shift":
+    (G, B, D)}}}``, shifts in the model dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
+    G, dt = cfg.n_groups, cfg.torch_dtype
     kv_len = min(context, cfg.window) if cfg.window else context
-    shape = (cfg.n_groups, batch_size, cfg.n_kv_heads, kv_len, cfg.head_dim)
-    return {f"pos{i}": {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-                        "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)}
-            for i in range(cfg.period)}
+    cache: dict[str, Any] = {}
+    for i in range(cfg.period):
+        if cfg.layer_kind(i)["mixer"] == "attn":
+            shape = (G, batch_size, cfg.n_kv_heads, kv_len, cfg.head_dim)
+            cache[f"pos{i}"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                                "v": torch.zeros(shape, dtype=dt, device=dev)}
+        else:
+            st = rwkv_init_state(cfg, batch_size, dt, dev)
+            cache[f"pos{i}"] = _stack(st, G)
+    return cache
+
+
+def _stack(tree: dict, G: int) -> dict:
+    return {k: _stack(v, G) if isinstance(v, dict)
+            else v[None].expand(G, *v.shape).contiguous() for k, v in tree.items()}
 
 
 def decode_step(params: DecoderLM, cfg: ModelConfig, cache: dict, batch: dict,
@@ -183,6 +226,5 @@ def decode_step(params: DecoderLM, cfg: ModelConfig, cache: dict, batch: dict,
     h = params.embed_in(batch)
     for layer, blk in enumerate(params.blocks):
         g, i = divmod(layer, cfg.period)
-        c: dict[str, Any] = cache[f"pos{i}"]
-        h = blk.decode(h, {"k": c["k"][g], "v": c["v"][g]}, pos_idx)
+        h = blk.decode(h, _slice(cache[f"pos{i}"], g), pos_idx)
     return params.logits_out(h)[:, 0], cache

@@ -179,3 +179,85 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, H, Hkv, S, D, causal, window
     if dtype == torch.bfloat16:
         assert bool((diff <= 2.0 ** -8 * want.abs() + 2e-5).all())
         assert float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want)) <= 4e-3
+
+
+def test_cpu_rwkv_serving_loads_neither_jax_nor_repro():
+    code = """
+import sys
+import torch
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
+from repro_torch.models.common import init_params
+cfg = get_smoke_config("rwkv6-1.6b")
+model = T.DecoderLM(cfg, init_params(cfg, seed=0, device="cpu"))
+with torch.inference_mode():
+    T.prefill(model, cfg, {"tokens": torch.zeros((2, 37), dtype=torch.long)})
+out = serve.main(["--device", "cpu", "--gen-len", "4"])
+assert out["arch"] == "rwkv6-smoke", out["arch"]
+from repro_torch.kernels.wkv6 import kernel as wk
+assert wk._lib is None and wk.launches["wkv6"] == 0, "a CPU run used the CUDA kernel"
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_wkv6_kernel_source_and_build_dir(monkeypatch):
+    from repro_torch.kernels.wkv6 import kernel as wk
+
+    assert wk.SOURCES == (PORT / "csrc" / "wkv6.cu",)
+    assert wk.SOURCES[0].is_file()
+    assert wk.build_dir() == ROOT / "build" / "repro_torch"
+    assert "arch=compute_90a,code=sm_90a" in wk.NVCC_FLAGS
+    assert not any("fast_math" in f for f in wk.NVCC_FLAGS)
+    # built only for a card: without one the build raises before nvcc is
+    # looked for
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(wk, "_lib", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        wk.library()
+    assert wk._lib is None
+
+
+def _wkv_inputs(gen, B, L, H, N, scale, dev):
+    r, k, v = (torch.randn((B, L, H, N), generator=gen, device=dev) for _ in range(3))
+    w = torch.exp(-torch.exp(scale * torch.randn((B, L, H, N), generator=gen, device=dev)))
+    u = 0.1 * torch.randn((H, N), generator=gen, device=dev)
+    s0 = 0.2 * torch.randn((B, H, N, N), generator=gen, device=dev)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("B,L,H,N,scale", [
+    (1, 1, 1, 8, 2.0),       # one token (a decode step)
+    (2, 96, 2, 16, 2.0),     # several chunks, state carried
+    (1, 50, 2, 8, 2.0),      # ragged last chunk
+    (2, 64, 2, 64, 2.0),     # model-sized head
+    (1, 70, 3, 24, 3.5),     # partial value slab, near-zero decays
+])
+def test_wkv6_kernel_matches_plain(cuda, chunk, B, L, H, N, scale):
+    """The CUDA kernel against its plain version on the card: max abs
+    2e-3 * max(1, max |plain|) (the bar of tests/test_kernel_wkv6.py) and
+    relative L2 1e-4, on y and on the final state."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import wkv6, wkv_chunked_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(L + N)
+    args = _wkv_inputs(gen, B, L, H, N, scale, cuda)
+    before = wk.launches["wkv6"]
+    y, s = wkv6(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wk.launches["wkv6"] == before + 1
+    yr, sr = wkv_chunked_ref(*args, chunk=chunk)
+    for got, want in ((y, yr), (s, sr)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        diff = (got - want).abs()
+        assert float(diff.max()) <= 2e-3 * max(1.0, float(want.abs().max()))
+        assert float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want)) <= 1e-4

@@ -37,8 +37,7 @@ from repro_torch.runtime.monitor import ProgressMonitor
 
 ATTN_ONLY = ["deepseek-7b", "yi-9b", "h2o-danube-3-4b", "starcoder2-15b",
              "qwen2-vl-72b", "musicgen-medium"]
-NOT_PORTED = ["qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "jamba-v0.1-52b",
-              "rwkv6-1.6b"]
+NOT_PORTED = ["qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "jamba-v0.1-52b"]
 RTOL = ATOL = 1e-4
 B = 2
 
@@ -258,10 +257,11 @@ def test_serve_prefill_crosscheck_on_cpu():
 
 
 def test_serve_default_arch_is_served():
-    """With no ``--arch`` the launcher serves a model the port supports."""
+    """With no ``--arch`` the launcher serves the reference's default,
+    rwkv6-1.6b (its smoke config)."""
     out = serve.main(["--device", "cpu", "--requests", "2", "--prompt-len", "3",
                       "--gen-len", "2"])
-    assert out["arch"] == "yi-9b-smoke"
+    assert out["arch"] == "rwkv6-smoke"
     assert out["continuations"].shape == (2, 2)
 
 
