@@ -15,12 +15,15 @@ kernels.  Every phase prints one JSON line; any failure raises and ends the
 run with a non-zero exit.  The last line is ``{"ok": true, "device": {...}}``.
 
 Phases: env, build, kernels (random ragged shapes), flash_kernels (random
-attention shapes), wkv6_kernels (random wkv shapes, chunks 16, 32 and 64,
-one call at L = 32,768), sweep_fig7 (B = 600, the paper's Fig. 7 sweep),
-sweep_b10k_ramped (B = 10,000 with ramped link allocations), queries
-(T = 1024 curve queries on the B = 10,000 Report), lm_prefill (yi-9b, bf16,
-B = 2, S = 4096), lm_serve (``repro_torch.launch.serve`` with yi-9b, 8
-requests), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096),
+attention shapes, float32 and bf16, and one bf16 call at S = 32,768 held
+against the plain version 2,048 query rows at a time), wkv6_kernels
+(random wkv shapes, chunks 16, 32 and 64, one call at L = 32,768),
+sweep_fig7 (B = 600, the paper's Fig. 7 sweep), sweep_b10k_ramped
+(B = 10,000 with ramped link allocations), queries (T = 1024 curve queries
+on the B = 10,000 Report), lm_prefill (yi-9b, bf16, B = 2, S = 4096; every
+flash call on the tensor-core kernel), lm_serve (``repro_torch.launch.serve``
+with yi-9b, 8 requests; prefill against decode beside the bf16 batch-split
+floor), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096),
 lm_serve_rwkv (the launcher with rwkv6-1.6b, 8 requests), then the
 per-kernel line with launches on each path, errors and times at each
 path's shapes.  The launch counts are set to 0 just before each path is
@@ -65,9 +68,8 @@ SOURCE = "src/repro_torch/csrc/ppoly_eval.cu"
 FLASH = {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:85"}
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 0.03}   # tests/test_kernel_flash_attention.py
-FLASH_REL_L2 = {"float32": 1e-5, "bfloat16": 4e-3}   # relative L2 vs the f32 result
-BF16_HALF_STEP = 2.0 ** -8          # half a bf16 step, relative to the value
+FLASH_LONG = (1, 32, 4, 32_768, 128)   # B, H, Hkv, S, D: prefill_32k at yi-9b's heads
+FLASH_LONG_ROWS = 2_048             # query rows per block of its plain check
 LM_ARCH = "yi-9b"
 LM_BATCH, LM_SEQ = 2, 4096          # the train_4k length
 SERVE_TOL = 5e-2                    # prefill vs decode logits, relative L2
@@ -383,29 +385,91 @@ def flash_bound(q, k, v, causal: bool, window) -> tuple[float, str]:
 
 
 def flash_err(out, args, kw) -> dict:
-    """One flash call against the plain version on the same inputs, taken in
-    float32 before its final cast (as tests/test_kernel_flash_attention.py
-    holds the bf16 kernel): two bf16 roundings of nearly equal values may lie
-    a whole bf16 step apart.  Three bars: the max abs error; for bf16, every
-    element within half a bf16 step of the float32 result plus the float32
-    bar (``elem_ratio`` <= 1); and the relative L2 error over the call."""
+    """One flash call against the plain version on the same inputs in
+    float32, with the bars of ``flash_failures``: max abs and relative L2;
+    for bf16 also every element within 2^-8 (|want| + P|V|) + 2e-5, the
+    output's and the probabilities' rounding to bf16 (P|V| is the plain
+    version with |v|)."""
     import torch
-    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import (attention_ref, flash_error,
+                                                      flash_failures)
 
-    want = attention_ref(*(a.float() for a in args), **kw)
-    name = str(out.dtype).split(".")[-1]
-    diff = (out.float() - want).abs()
-    err = float(diff.max())
-    rel = float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want))
-    ratio = float("nan")
-    if out.dtype == torch.bfloat16:
-        ratio = float((diff / (BF16_HALF_STEP * want.abs() + FLASH_TOL["float32"])).max())
-    del want, diff
-    what = f"flash_attention {tuple(args[0].shape)} {out.dtype} {kw}"
-    check(err < FLASH_TOL[name], f"{what}: max abs error {err}")
-    check(rel <= FLASH_REL_L2[name], f"{what}: relative L2 error {rel}")
-    check(not ratio > 1.0, f"{what}: an element off by {ratio} x its bf16 bar")
-    return {"max_abs_err": err, "rel_l2": rel, "elem_ratio": ratio}
+    q, k, v = (a.float() for a in args)
+    want = attention_ref(q, k, v, **kw)
+    pv = attention_ref(q, k, v.abs(), **kw) if out.dtype == torch.bfloat16 else None
+    err = flash_error(out, want, pv)
+    del q, k, v, want, pv
+    bad = flash_failures(err, out.dtype)
+    check(not bad, f"flash_attention {tuple(args[0].shape)} {out.dtype} {kw}: "
+                   + "; ".join(bad))
+    return {key: err[key] for key in ("max_abs_err", "rel_l2", "elem_ratio")}
+
+
+def attention_rows(q, kr, vr, var, row0: int, *, causal: bool, window):
+    """The plain version for the query rows row0 .. row0 + R - 1 that ``q``
+    (B, H, R, D) holds, against float32 keys and values with their heads
+    already repeated to H (``var`` is |vr|): ``attention_ref``'s arithmetic
+    with the masks offset by row0, over the keys up to the last row when
+    causal.  Returns (want, P|V|)."""
+    import torch
+
+    R, D = q.shape[2], q.shape[3]
+    hi = min(kr.shape[2], row0 + R) if causal else kr.shape[2]
+    s = torch.matmul(q, kr[:, :, :hi].transpose(-1, -2))
+    s /= torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
+    qi = torch.arange(row0, row0 + R, device=q.device)[:, None]
+    kj = torch.arange(hi, device=q.device)[None, :]
+    mask = torch.ones((R, hi), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    s.masked_fill_(~mask, float("-inf"))
+    s -= s.amax(dim=-1, keepdim=True)
+    s.exp_()
+    s /= s.sum(dim=-1, keepdim=True)
+    return torch.matmul(s, vr[:, :, :hi]), torch.matmul(s, var[:, :, :hi])
+
+
+def flash_long() -> dict:
+    """The tensor-core kernel once at the prefill_32k length, causal, held
+    against the plain version FLASH_LONG_ROWS query rows at a time (scores
+    under 9 GB a block); its time by CUDA events."""
+    import math
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_error, flash_failures
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    B, H, Hkv, S, D = FLASH_LONG
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((B, H, S, D), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
+    check(fa.route(q.dtype, D) == "tc", "the S = 32,768 call is not on the tensor cores")
+    out = fa.flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True), iters=3)
+    kr = k.float().repeat_interleave(H // Hkv, 1)
+    vr = v.float().repeat_interleave(H // Hkv, 1)
+    var = vr.abs()
+    errs = []
+    for r0 in range(0, S, FLASH_LONG_ROWS):
+        want, pv = attention_rows(q[:, :, r0:r0 + FLASH_LONG_ROWS].float(), kr, vr,
+                                  var, r0, causal=True, window=None)
+        errs.append(flash_error(out[:, :, r0:r0 + FLASH_LONG_ROWS], want, pv))
+        del want, pv
+    del kr, vr, var
+    err = {"max_abs_err": max(e["max_abs_err"] for e in errs),
+           "rel_l2": math.sqrt(sum(e["diff_sq"] for e in errs)
+                               / sum(e["want_sq"] for e in errs)),
+           "elem_ratio": max(e["elem_ratio"] for e in errs)}
+    bad = flash_failures(err, torch.bfloat16)
+    check(not bad, f"flash_attention at S = {S}: " + "; ".join(bad))
+    b_ms, b_by = flash_bound(q, k, v, True, None)
+    flops = 4 * B * H * D * attended_pairs(S, True, None)
+    return {"shape": list(FLASH_LONG), "row_blocks": len(errs), **err, "ms": ms,
+            "tflops": flops / ms / 1e9, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def worst_of(errs: list[dict]) -> dict:
@@ -421,7 +485,8 @@ def worst_of(errs: list[dict]) -> dict:
 def phase_flash_kernels():
     """Seeded random shapes: MHA, GQA groups 2 and 8, MQA; D in {16, 64,
     120, 128}; S in {1, 37, 128, 300}; window None or 32; causal=False
-    twice; float32 and bf16."""
+    twice; float32 (the float32 kernel) and bf16 (the tensor-core kernel);
+    then one bf16 call at S = 32,768 (:func:`flash_long`)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
 
@@ -431,6 +496,7 @@ def phase_flash_kernels():
     shapes = [(hk, D, S, w, True) for hk in heads for D in (16, 64, 120, 128)
               for S in (1, 37, 128, 300) for w in (None, 32)]
     shapes += [("gqa2", 120, 300, None, False), ("mqa", 64, 37, 32, False)]
+    routes = {"tc": 0, "f32": 0}
     for hk, D, S, w, causal in shapes:
         H, Hkv = heads[hk]
         for dtype in (torch.float32, torch.bfloat16):
@@ -440,13 +506,18 @@ def phase_flash_kernels():
             kw = {"causal": causal, "window": w}
             out = fa.flash_attention_cuda(q, k, v, **kw)
             torch.cuda.synchronize()
+            routes[fa.route(dtype, D)] += 1
             errs[str(dtype).split(".")[-1]].append(flash_err(out, (q, k, v), kw))
     worst = {name: worst_of(e) for name, e in errs.items()}
-    emit("flash_kernels", cases=sum(map(len, errs.values())), tol=FLASH_TOL,
-         rel_l2_tol=FLASH_REL_L2, elem_bar=f"2**-8 |want| + {FLASH_TOL['float32']}",
+    long = flash_long()
+    emit("flash_kernels", cases=sum(map(len, errs.values())), routes=routes,
+         tol={"float32": 2e-5, "bfloat16": 0.03},
+         rel_l2_tol={"float32": 1e-5, "bfloat16": 4e-3},
+         elem_bar="2**-8 (|want| + P|V|) + 2e-05 (bf16)",
          max_abs_err={n: w["max_abs_err"] for n, w in worst.items()},
          rel_l2={n: w["rel_l2"] for n, w in worst.items()},
-         elem_ratio=worst["bfloat16"]["elem_ratio"])
+         elem_ratio=worst["bfloat16"]["elem_ratio"], long_case=long)
+    return long
 
 
 def phase_lm_prefill():
@@ -475,6 +546,9 @@ def phase_lm_prefill():
             launches = read_launches()
         check(launches["flash_attention"] == cfg.n_layers,
               f"{launches['flash_attention']} flash launches, {cfg.n_layers} layers")
+        check(launches["flash_attention_tc"] == cfg.n_layers,
+              f"{launches['flash_attention_tc']} of {cfg.n_layers} flash launches "
+              "on the tensor-core kernel")
         check(tuple(last.shape) == (LM_BATCH, cfg.vocab_size)
               and bool(torch.isfinite(last).all()), "prefill logits")
         errs = [flash_err(out, args, kw)
@@ -491,7 +565,7 @@ def phase_lm_prefill():
          init_s=init_s, cold_s=cold_s, warm_s=warm_s,
          tok_s=LM_BATCH * LM_SEQ / warm_s, peak_memory_bytes=peak,
          launches=launches, flash_calls=len(errs), **worst_of(errs),
-         tol=FLASH_TOL["bfloat16"], rel_l2_tol=FLASH_REL_L2["bfloat16"],
+         tol=0.03, rel_l2_tol=4e-3, elem_bar="2**-8 (|want| + P|V|) + 2e-05",
          rerun_max_abs_diff=drift)
     return cfg, model, launches, worst_of(errs)["max_abs_err"], first
 
@@ -499,7 +573,8 @@ def phase_lm_prefill():
 def phase_lm_serve(cfg, model):
     """The serving launcher as a user calls it, then prefill of the same
     prompts (S = 32, ragged for the kernel) against the decode path's
-    logits after the last prompt token."""
+    logits after the last prompt token, beside the bf16 batch-split floor:
+    the same prompts prefilled one by one against the batch."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.launch import serve
@@ -510,15 +585,20 @@ def phase_lm_serve(cfg, model):
     launches = read_launches()
     gen = out["continuations"]
     check(gen.shape == (8, 16) and out["requests"] == 8, f"served {gen.shape}")
-    with torch.inference_mode(), Recorder(fa, ["flash_attention"]) as rec:
-        last = T.prefill(model, cfg, {"tokens": torch.as_tensor(
-            out["prompts"], device="cuda")}).float().cpu()
-        errs = [flash_err(o, args, kw) for (_n, args, o), kw in zip(rec.calls, rec.kwargs)]
+    prompts = torch.as_tensor(out["prompts"], device="cuda")
+    with torch.inference_mode():
+        with Recorder(fa, ["flash_attention"]) as rec:
+            last = T.prefill(model, cfg, {"tokens": prompts})
+            errs = [flash_err(o, args, kw) for (_n, args, o), kw in zip(rec.calls, rec.kwargs)]
+        del rec
+        alone = torch.cat([T.prefill(model, cfg, {"tokens": prompts[i:i + 1]})
+                           for i in range(prompts.shape[0])])
     dec = out["prompt_logits"]
     check(bool(torch.isfinite(dec).all()), "decode logits not finite")
-    rel = float(torch.linalg.vector_norm(last - dec) / torch.linalg.vector_norm(dec))
+    rel = rel_l2(dec, last)
+    floor = rel_l2(alone, last)
     check(rel < SERVE_TOL, f"prefill vs decode logits: relative L2 {rel}")
-    agree = float((last.argmax(-1) == dec.argmax(-1)).float().mean())
+    agree = float((last.float().cpu().argmax(-1) == dec.argmax(-1)).float().mean())
     trace = trace_decode(cfg, model, out["requests"],
                          out["prompt_len"] + out["generated"])
     emit("lm_serve", arch=out["arch"], requests=out["requests"],
@@ -526,6 +606,7 @@ def phase_lm_serve(cfg, model):
          wall_s=out["wall_s"], tok_s=out["tok_s"],
          median_step_ms=out["median_step_ms"], sample=out["sample"],
          launches=launches, crosscheck_rel_l2=rel, crosscheck_tol=SERVE_TOL,
+         crosscheck_floor=floor,
          crosscheck_argmax_agree=agree, crosscheck_flash_calls=len(errs),
          **{f"crosscheck_flash_{k}": v for k, v in worst_of(errs).items()},
          decode_trace=trace)
@@ -559,35 +640,51 @@ def trace_decode(cfg, model, batch: int, context: int, steps: int = 3) -> dict:
             "kernels_per_step": len(kernels) / steps}
 
 
-def flash_row(launches: int, err: float, first) -> dict:
+def flash_row(launches: dict, err: float, first, long: dict) -> dict:
     """Times at the lm_prefill shape: the kernel (CUDA events, the smaller
-    of two runs around the plain version), the plain version, and
-    scaled_dot_product_attention as the yardstick."""
+    of two runs around the plain version), the plain version, the float32
+    kernel on the same inputs in float32, and scaled_dot_product_attention
+    as the yardstick (its error against the plain version logged beside the
+    kernel's, never held to a bar)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import attention_ref, flash_error
     from repro_torch.kernels.flash_attention import kernel as fa
 
     (q, k, v), kw = first
+    check(kw["window"] is None and kw["causal"], f"prefill call options {kw}")
+    B, H, S, D = q.shape
     ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=10)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=3)
     ms2 = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=10)
-    check(kw["window"] is None and kw["causal"], f"prefill call options {kw}")
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32_ms = cuda_ms(lambda: fa.flash_attention_cuda(qf, kf, vf, **kw), iters=3)
     try:
         lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=True, enable_gqa=True)
         lib_fn()
     except TypeError:            # a torch without enable_gqa: repeat K and V
-        g = q.shape[1] // k.shape[1]
+        g = H // k.shape[1]
         kr, vr = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
         lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, kr, vr, is_causal=True)
     library_ms = cuda_ms(lib_fn, iters=10)
+    want = attention_ref(qf, kf, vf, **kw)
+    pv = attention_ref(qf, kf, vf.abs(), **kw)
+    lib_err = flash_error(lib_fn(), want, pv)
+    del qf, kf, vf, want, pv
     b_ms, b_by = flash_bound(q, k, v, kw["causal"], kw["window"])
-    return {**FLASH, "launches": launches, "max_abs_err": err,
-            "ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library_ms,
-            "shape": {"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)}}
+    flops = 4 * B * H * D * attended_pairs(S, kw["causal"], kw["window"])
+    best = min(ms, ms2)
+    return {**FLASH, "launches": launches["flash_attention"],
+            "launches_tc": launches["flash_attention_tc"], "max_abs_err": err,
+            "ms": best, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library_ms, "tflops": flops / best / 1e9,
+            "f32_kernel_ms": f32_ms,
+            "library_err": {key: lib_err[key] for key in
+                            ("max_abs_err", "rel_l2", "elem_ratio")},
+            "shape": {"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype)},
+            "long_shape": long}
 
 
 # ------------------------------------------------------------------ wkv6 ----
@@ -946,7 +1043,7 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     phase_kernels()
-    phase_flash_kernels()
+    flash_long_case = phase_flash_kernels()
     phase_wkv6_kernels()
 
     # ---- the analysis path, counted: sweeps and the Report's curve queries ----
@@ -996,7 +1093,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    rows.append(flash_row(lm_launches["flash_attention"], flash_errs, first))
+    rows.append(flash_row(lm_launches, flash_errs, first, flash_long_case))
     del first
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,4 +1,4 @@
 from .ops import flash_attention
-from .ref import attention_ref
+from .ref import attention_ref, flash_error, flash_failures
 
-__all__ = ["flash_attention", "attention_ref"]
+__all__ = ["flash_attention", "attention_ref", "flash_error", "flash_failures"]
