@@ -17,14 +17,16 @@ run with a non-zero exit.  The last line is ``{"ok": true, "device": {...}}``.
 Phases: env, build, kernels (random ragged shapes), flash_kernels (random
 attention shapes, float32 and bf16, and one bf16 call at S = 32,768 held
 against the plain version 2,048 query rows at a time), wkv6_kernels
-(random wkv shapes, chunks 16, 32 and 64, one call at L = 32,768),
+(random wkv shapes, chunks 16, 32 and 64, one call at L = 32,768, each on
+both routes: the chunked kernels and the serial kernel),
 sweep_fig7 (B = 600, the paper's Fig. 7 sweep), sweep_b10k_ramped
 (B = 10,000 with ramped link allocations), queries (T = 1024 curve queries
 on the B = 10,000 Report), lm_prefill (yi-9b, bf16, B = 2, S = 4096; every
 flash call on the tensor-core kernel), lm_serve (``repro_torch.launch.serve``
 with yi-9b, 8 requests; prefill against decode beside the bf16 batch-split
-floor), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096),
-lm_serve_rwkv (the launcher with rwkv6-1.6b, 8 requests), then the
+floor), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096; every wkv6
+call on the chunked route), lm_serve_rwkv (the launcher with rwkv6-1.6b, 8
+requests; every wkv6 call on the serial route), then the
 per-kernel line with launches on each path, errors and times at each
 path's shapes.  The launch counts are set to 0 just before each path is
 driven and read just after it.
@@ -749,26 +751,40 @@ def wkv_bound(args, chunk: int) -> tuple[float, str]:
 
 def phase_wkv6_kernels():
     """The cases of tests/test_kernel_wkv6.py (single chunk, state carried,
-    chunk 16, head size 64, ragged L, near-zero decays) plus one token and
-    the decode shape, at their chunk and again at chunk 64; then one call at
-    the prefill_32k length, which carries the state over 1,024 chunks."""
+    chunk 16, head size 64, ragged L, near-zero decays) plus one token, the
+    decode shape, a head size that is not a multiple of 4 and 65 chunks, at
+    their chunk and again at chunk 64; then one call at the prefill_32k
+    length, which carries the state over 1,024 chunks (and is timed on each
+    route).  Every case runs on both routes (the chunked and the serial
+    kernels each take any L)."""
     import torch
     from repro_torch.kernels.wkv6 import kernel as wk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(1, 1, 1, 8, 32, 2.0), (1, 32, 1, 8, 32, 2.0), (2, 96, 2, 16, 32, 2.0),
              (1, 80, 3, 8, 16, 2.0), (2, 64, 2, 64, 32, 2.0), (1, 50, 2, 8, 32, 2.0),
-             (1, 64, 1, 8, 32, 3.5), (8, 1, 32, 64, 32, 2.0)]
+             (1, 64, 1, 8, 32, 3.5), (8, 1, 32, 64, 32, 2.0), (2, 333, 2, 22, 16, 3.5),
+             (1, 4133, 2, 64, 64, 2.0)]
     cases += [(B, L, H, N, 64, sc) for B, L, H, N, _c, sc in cases]
     cases.append((*WKV_LONG, 32, 2.0))
-    errs = []
+    run = {"chunked": wk.launch_chunked, "serial": wk.launch_serial}
+    errs = {rt: [] for rt in wk.ROUTES}
+    long = {}
     for B, L, H, N, chunk, scale in cases:
         args = wkv_inputs(gen, B, L, H, N, scale)
-        out = wk.wkv6_cuda(*args, chunk=chunk)
-        torch.cuda.synchronize()
-        errs.append(wkv_err(out, args, {"chunk": chunk}))
-    emit("wkv6_kernels", cases=len(cases), long_case=list(WKV_LONG), long=errs[-1],
-         tol=f"{WKV_ABS} max(1, max|plain|)", rel_l2_tol=WKV_REL_L2, **worst_of(errs))
+        for rt in wk.ROUTES:
+            out = run[rt](*args, chunk=chunk)
+            torch.cuda.synchronize()
+            errs[rt].append(wkv_err(out, args, {"chunk": chunk}))
+            del out
+        if (B, L, H, N) == WKV_LONG:
+            long = {rt: {**errs[rt][-1], "ms": cuda_ms(
+                lambda rt=rt: run[rt](*args, chunk=chunk), iters=3)}
+                for rt in wk.ROUTES}
+    emit("wkv6_kernels", cases=len(cases), routes=list(wk.ROUTES),
+         long_case=list(WKV_LONG), long=long,
+         tol=f"{WKV_ABS} max(1, max|plain|)", rel_l2_tol=WKV_REL_L2,
+         **{rt: worst_of(e) for rt, e in errs.items()})
 
 
 def phase_lm_prefill_rwkv():
@@ -795,8 +811,9 @@ def phase_lm_prefill_rwkv():
             reset_launches()
             cold_s, last = host_s(lambda: T.prefill(model, cfg, batch))
             launches = read_launches()
-        check(launches["wkv6"] == cfg.n_layers,
-              f"{launches['wkv6']} wkv6 launches, {cfg.n_layers} layers")
+        check(launches["wkv6"] == launches["wkv6_chunked"] == cfg.n_layers,
+              f"{launches['wkv6']} wkv6 calls, {launches['wkv6_chunked']} on the "
+              f"chunked route, {cfg.n_layers} layers")
         check(tuple(last.shape) == (LM_BATCH, cfg.vocab_size)
               and bool(torch.isfinite(last).all()), "prefill logits")
         errs = [wkv_err(out, args, kw)
@@ -850,8 +867,9 @@ def phase_lm_serve_rwkv(cfg, model) -> int:
     gen = out["continuations"]
     steps = out["prompt_len"] + out["generated"]
     check(gen.shape == (8, 16) and out["requests"] == 8, f"served {gen.shape}")
-    check(launches["wkv6"] == cfg.n_layers * steps,
-          f"{launches['wkv6']} wkv6 launches, {cfg.n_layers} layers x {steps} steps")
+    check(launches["wkv6"] == launches["wkv6_serial"] == cfg.n_layers * steps,
+          f"{launches['wkv6']} wkv6 calls, {launches['wkv6_serial']} on the serial "
+          f"route, {cfg.n_layers} layers x {steps} steps")
     prompts = torch.as_tensor(out["prompts"], device="cuda")
     with torch.inference_mode():
         with Recorder(wk, ["wkv6"]) as rec:
@@ -894,35 +912,74 @@ def phase_lm_serve_rwkv(cfg, model) -> int:
          crosscheck_wkv6_calls=len(errs),
          **{f"crosscheck_wkv6_{k}": v for k, v in worst_of(errs).items()},
          decode_trace=trace)
-    return launches["wkv6"]
+    return launches
+
+
+def wkv_ptxas() -> dict:
+    """Registers and spill bytes of each wkv6 kernel, from ``ptxas -v`` in
+    the build log beside the library."""
+    import re
+
+    from repro_torch.kernels.build import ptxas_usage
+    from repro_torch.kernels.wkv6 import kernel as wk
+
+    log = Path(wk.library()._name).with_suffix(".log").read_text()
+    out = {}
+    for name, use in ptxas_usage(log).items():
+        # the length prefix of the mangled name precedes the kernel's name
+        m = re.search(r"\d(wkv6_[a-z_]*?kernel)(?:ILi(\d+)E)?", name)
+        out[f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else
+            (m.group(1) if m else name)] = use
+    return out
 
 
 def wkv_row(launches: dict, err: float, first) -> dict:
-    """Times at the lm_prefill_rwkv shape (the kernel by CUDA events, the
-    smaller of two runs around the plain version), and at the decode shape
-    (B = 8, L = 1).  No single PyTorch call computes this recurrence, so no
-    library time."""
+    """Times at the lm_prefill_rwkv shape by CUDA events: the op (the
+    chunked route; the smaller of two runs around the plain version), its
+    two phases apart, the serial kernel on the same inputs, the plain
+    version; and at the decode shape (B = 8, L = 1): the op (the serial
+    route), the chunked route on the same inputs, the plain version.  The
+    chunked route's scratch bytes.  No single PyTorch call computes this
+    recurrence, so no library time."""
     import torch
     from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.kernels.wkv6 import wkv_chunked_ref
 
     args, kw = first
+    chunk = kw["chunk"]
+    r = args[0]
+    B, L, H, N = r.shape
+    check(wk.route(L, chunk) == "chunked", f"prefill call takes {wk.route(L, chunk)}")
     ms = cuda_ms(lambda: wk.wkv6_cuda(*args, **kw))
     plain_ms = cuda_ms(lambda: wkv_chunked_ref(*args, **kw), iters=3)
     ms2 = cuda_ms(lambda: wk.wkv6_cuda(*args, **kw))
-    b_ms, b_by = wkv_bound(args, kw["chunk"])
+    serial_ms = cuda_ms(lambda: wk.launch_serial(*args, **kw), iters=5)
+    y, scratch = wk.launch_intra(*args, **kw)
+    phase_ms = [cuda_ms(lambda: wk.launch_intra(*args, **kw)),
+                cuda_ms(lambda: wk.launch_scan(args[5], y, scratch, **kw))]
+    scratch_bytes = 4 * scratch.numel()
+    del y, scratch
+    b_ms, b_by = wkv_bound(args, chunk)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    r = args[0]
-    dec = wkv_inputs(gen, 8, 1, r.shape[2], r.shape[3])
+    dec = wkv_inputs(gen, 8, 1, H, N)
+    check(wk.route(1, chunk) == "serial", "decode call takes the chunked route")
     dec_ms = cuda_ms(lambda: wk.wkv6_cuda(*dec, **kw), iters=100)
+    dec_chunked_ms = cuda_ms(lambda: wk.launch_chunked(*dec, **kw), iters=100)
     dec_plain_ms = cuda_ms(lambda: wkv_chunked_ref(*dec, **kw), iters=20)
-    dec_bound, dec_by = wkv_bound(dec, kw["chunk"])
-    return {**WKV6, "launches": sum(launches.values()), "launches_by_phase": launches,
+    dec_bound, dec_by = wkv_bound(dec, chunk)
+    return {**WKV6, "launches": launches["wkv6"],
+            "launches_chunked": launches["wkv6_chunked"],
+            "launches_serial": launches["wkv6_serial"],
+            "launches_by_phase": launches["by_phase"],
             "max_abs_err": err, "ms": min(ms, ms2), "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "library_note": "no single PyTorch call computes the wkv recurrence",
-            "shape": {"r": list(r.shape), "chunk": kw["chunk"], "dtype": str(r.dtype)},
+            "phase1_ms": phase_ms[0], "phase2_ms": phase_ms[1],
+            "serial_kernel_ms": serial_ms, "scratch_bytes": scratch_bytes,
+            "ptxas": wkv_ptxas(),
+            "shape": {"r": list(r.shape), "chunk": chunk, "dtype": str(r.dtype)},
             "decode_shape": {"r": list(dec[0].shape), "ms": dec_ms,
+                             "chunked_ms": dec_chunked_ms,
                              "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
                              "bound_by": dec_by}}
 
@@ -1104,8 +1161,11 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    rows.append(wkv_row({"lm_prefill_rwkv": rwkv_launches["wkv6"],
-                         "lm_serve_rwkv": serve_launches}, wkv_errs, first))
+    wkv_launches = {key: rwkv_launches[key] + serve_launches[key]
+                    for key in ("wkv6", "wkv6_chunked", "wkv6_serial")}
+    wkv_launches["by_phase"] = {"lm_prefill_rwkv": rwkv_launches["wkv6"],
+                                "lm_serve_rwkv": serve_launches["wkv6"]}
+    rows.append(wkv_row(wkv_launches, wkv_errs, first))
     emit("timing", analysis_peak_memory_bytes=analysis_peak,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(smi, flush=True)

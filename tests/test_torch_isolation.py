@@ -230,6 +230,60 @@ def test_wkv6_kernel_source_and_build_dir(monkeypatch):
     assert wk._lib is None
 
 
+def test_wkv6_chunked_route_source():
+    """The chunked route: a phase per (b, h, chunk), a state scan fed by
+    cp.async copies under mbarriers, tensor-core products split for 3xTF32;
+    ptxas reports registers and spills into the build log."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+
+    src = wk.SOURCES[0].read_text()
+    for needle in ("wkv6_intra_kernel", "wkv6_scan_kernel", "wkv6_intra_launch",
+                   "wkv6_scan_launch", "wkv6_scratch_floats",
+                   "mma.sync.aligned.m16n8k8.row.col.f32.tf32", "0xffffe000u",
+                   "cp.async", "mbarrier"):
+        assert needle in src, needle
+    assert "-v" in wk.NVCC_FLAGS and "-Xptxas" in wk.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("name", ["wkv6_cuda", "launch_serial", "launch_chunked",
+                                  "launch_intra", "launch_scan"])
+def test_wkv6_launchers_take_cuda_tensors_only(monkeypatch, name):
+    """Every launcher refuses CPU tensors before it builds or loads the
+    library."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+
+    monkeypatch.setattr(wk, "_lib", None)
+    r, s0 = torch.zeros((1, 40, 1, 8)), torch.zeros((1, 1, 8, 8))
+    args = [r, r, r, r, torch.zeros((1, 8)), s0]
+    if name == "launch_scan":
+        args = [s0, r, torch.zeros(1000)]
+    before = dict(wk.launches)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        getattr(wk, name)(*args, chunk=32)
+    assert wk._lib is None and wk.launches == before
+
+
+def test_ptxas_usage_parses_registers_and_spills():
+    from repro_torch.kernels.build import ptxas_usage
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z4kernA' for 'sm_90a'
+ptxas info    : Function properties for _Z4kernA
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 412 bytes cmem[0]
+ptxas info    : Function properties for _Z6helperv
+    0 bytes stack frame, 64 bytes spill stores, 64 bytes spill loads
+ptxas info    : Compiling entry function '_Z4kernB' for 'sm_90a'
+ptxas info    : Function properties for _Z4kernB
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+    assert ptxas_usage(log) == {
+        "_Z4kernA": {"registers": 80, "spill_stores": 4, "spill_loads": 12},
+        "_Z4kernB": {"registers": 40, "spill_stores": 0, "spill_loads": 0}}
+    assert ptxas_usage("") == {}
+
+
 def _wkv_inputs(gen, B, L, H, N, scale, dev):
     r, k, v = (torch.randn((B, L, H, N), generator=gen, device=dev) for _ in range(3))
     w = torch.exp(-torch.exp(scale * torch.randn((B, L, H, N), generator=gen, device=dev)))
@@ -246,22 +300,33 @@ def _wkv_inputs(gen, B, L, H, N, scale, dev):
     (1, 50, 2, 8, 2.0),      # ragged last chunk
     (2, 64, 2, 64, 2.0),     # model-sized head
     (1, 70, 3, 24, 3.5),     # partial value slab, near-zero decays
+    (1, 203, 2, 64, 3.5),    # ragged, near-zero decays, model-sized head
+    (1, 4133, 2, 64, 2.0),   # 65 to 259 chunks, ragged
+    (2, 333, 2, 22, 2.0),    # head size not a multiple of 4
 ])
 def test_wkv6_kernel_matches_plain(cuda, chunk, B, L, H, N, scale):
-    """The CUDA kernel against its plain version on the card: max abs
+    """The CUDA kernels against their plain version on the card: max abs
     2e-3 * max(1, max |plain|) (the bar of tests/test_kernel_wkv6.py) and
-    relative L2 1e-4, on y and on the final state."""
+    relative L2 1e-4, on y and on the final state.  The op takes the route
+    :func:`kernel.route` names; the other route is run too."""
     from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.kernels.wkv6 import wkv6, wkv_chunked_ref
 
     gen = torch.Generator(device=cuda).manual_seed(L + N)
     args = _wkv_inputs(gen, B, L, H, N, scale, cuda)
-    before = wk.launches["wkv6"]
+    rt = wk.route(L, chunk)
+    before = dict(wk.launches)
     y, s = wkv6(*args, chunk=chunk)
     torch.cuda.synchronize()
-    assert wk.launches["wkv6"] == before + 1
+    assert wk.launches["wkv6"] == before["wkv6"] + 1
+    assert wk.launches[f"wkv6_{rt}"] == before[f"wkv6_{rt}"] + 1
+    other = wk.launch_serial if rt == "chunked" else wk.launch_chunked
+    y2, s2 = other(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wk.launches == {**before, "wkv6": before["wkv6"] + 1,
+                           f"wkv6_{rt}": before[f"wkv6_{rt}"] + 1}
     yr, sr = wkv_chunked_ref(*args, chunk=chunk)
-    for got, want in ((y, yr), (s, sr)):
+    for got, want in ((y, yr), (s, sr), (y2, yr), (s2, sr)):
         assert got.shape == want.shape and got.dtype == torch.float32
         diff = (got - want).abs()
         assert float(diff.max()) <= 2e-3 * max(1.0, float(want.abs().max()))

@@ -12,9 +12,12 @@ so an elementwise rtol would measure the order, not the algorithm; the
 relative L2 bar holds the whole output 10x above the differences seen
 (5e-6 to 1e-5).
 
-The CUDA kernel is held against the plain version by the ``requires_cuda``
+The CUDA kernels are held against the plain version by the ``requires_cuda``
 test in ``tests/test_torch_isolation.py``, which imports no JAX and so also
-runs on a machine with a card; it skips without one.
+runs on a machine with a card; it skips without one.  Here the CUDA chunked
+route's arithmetic (phase 1 per chunk, the state scan, 16-token sub-chunks,
+3xTF32 products) is held on the CPU through its plain version
+``wkv_two_phase_ref``, at the same bars.
 """
 
 import jax.numpy as jnp
@@ -25,7 +28,8 @@ import torch
 from repro.kernels.wkv6 import wkv6 as jax_wkv6
 from repro.models.rwkv import wkv_chunked as jax_wkv_chunked
 from repro.models.rwkv import wkv_recurrent_ref as jax_wkv_recurrent
-from repro_torch.kernels.wkv6 import kernel, wkv6, wkv_chunked_ref, wkv_recurrent_ref
+from repro_torch.kernels.wkv6 import kernel, precision, wkv6, wkv_chunked_ref, wkv_recurrent_ref
+from repro_torch.kernels.wkv6.ref import wkv_two_phase_ref
 from repro_torch.models import rwkv
 
 MAX_ABS = 2e-3
@@ -114,6 +118,57 @@ def test_pallas_interpret_matches_port(B, L, H, N, chunk, scale):
     assert bool(torch.isfinite(y).all())
     _close(y, yw, "y")
     _close(s, sw, "s_final")
+
+
+# L, chunk, decay scale, N: every CHUNKED_CASES entry, then near-zero decays,
+# ragged L at each chunk size, and the model's head size
+TWO_PHASE_CASES = ([(L, chunk, 2.0, 8) for L, chunk in CHUNKED_CASES]
+                   + [(64, 32, 3.5, 8), (70, 16, 3.5, 24), (200, 64, 3.5, 24),
+                      (45, 16, 2.0, 16), (333, 32, 2.0, 64), (1, 32, 2.0, 8)])
+
+
+@pytest.mark.parametrize("L,chunk,scale,N", TWO_PHASE_CASES)
+def test_two_phase_ref_matches_reference(L, chunk, scale, N):
+    """The chunked route's decomposition, 3xTF32 emulated, against the port's
+    chunked version and the reference's ``wkv_chunked`` on the same inputs."""
+    a = _inputs(L + 3 * N, 2, L, 3, N, scale)
+    y, s = wkv_two_phase_ref(*_torch(a), chunk=chunk)
+    assert y.dtype == s.dtype == torch.float32
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    yr, sr = wkv_chunked_ref(*_torch(a), chunk=chunk)
+    _close(y, yr, "y vs wkv_chunked_ref")
+    _close(s, sr, "s_final vs wkv_chunked_ref")
+    yw, sw = jax_wkv_chunked(*_jax(a), chunk=chunk)
+    _close(y, yw, "y vs repro wkv_chunked")
+    _close(s, sw, "s_final vs repro wkv_chunked")
+
+
+def test_two_phase_ref_rejects_bad_arguments():
+    a = _torch(_inputs(1, 1, 8, 1, 8))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        wkv_two_phase_ref(*a, chunk=8)
+    with pytest.raises(ValueError, match="passes"):
+        wkv_two_phase_ref(*a, chunk=16, passes=2)
+
+
+def test_precision_script_prints_both_emulations(capsys):
+    """``python -m repro_torch.kernels.wkv6.precision``: plain TF32 and
+    3xTF32 at both decay scales (the numbers are recorded, not asserted)."""
+    precision.main()
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 4
+    assert sum("3xTF32" in line for line in lines) == 2
+
+
+@pytest.mark.parametrize("L,chunk,want", [(1, 32, "serial"), (31, 32, "serial"),
+                                          (32, 32, "serial"), (33, 32, "chunked"),
+                                          (16, 16, "serial"), (17, 16, "chunked"),
+                                          (64, 64, "serial"), (4096, 32, "chunked")])
+def test_route_by_shape(L, chunk, want):
+    """A call with more than one chunk (a prefill) takes the chunked route;
+    one chunk or less (a decode step) the serial route."""
+    assert kernel.route(L, chunk) == want
+    assert want in kernel.ROUTES
 
 
 # ------------------------------------------------------------------ the op ----
