@@ -14,22 +14,29 @@ kernel) at rwkv6-1.6b's full width — checks the results, and times the
 kernels.  Every phase prints one JSON line; any failure raises and ends the
 run with a non-zero exit.  The last line is ``{"ok": true, "device": {...}}``.
 
-Phases: env, build, kernels (random ragged shapes), flash_kernels (random
+Phases: env, build, kernels (random ragged shapes, T = 1 to 4097 and a q
+that is not 16-byte aligned; evaluation and the minimum on both routes,
+"vec" held bitwise against "tile" wherever it takes the shape),
+flash_kernels (random
 attention shapes, float32 and bf16, and one bf16 call at S = 32,768 held
 against the plain version 2,048 query rows at a time), wkv6_kernels
 (random wkv shapes, chunks 16, 32 and 64, one call at L = 32,768, each on
 both routes: the chunked kernels and the serial kernel),
 sweep_fig7 (B = 600, the paper's Fig. 7 sweep), sweep_b10k_ramped
 (B = 10,000 with ramped link allocations), queries (T = 1024 curve queries
-on the B = 10,000 Report), lm_prefill (yi-9b, bf16, B = 2, S = 4096; every
-flash call on the tensor-core kernel), lm_serve (``repro_torch.launch.serve``
+on the B = 10,000 Report, each call's host time and its kernel's share;
+every evaluation and minimum on the "vec" route), lm_prefill (yi-9b,
+bf16, B = 2, S = 4096; every flash call on the tensor-core kernel),
+lm_serve (``repro_torch.launch.serve``
 with yi-9b, 8 requests; prefill against decode beside the bf16 batch-split
 floor), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096; every wkv6
 call on the chunked route), lm_serve_rwkv (the launcher with rwkv6-1.6b, 8
 requests; every wkv6 call on the serial route), then the
 per-kernel line with launches on each path, errors and times at each
-path's shapes.  The launch counts are set to 0 just before each path is
-driven and read just after it.
+path's shapes (for evaluation and the minimum also per route, with the L2
+flushed between launches, the "tile" route on the same inputs, and ptxas
+registers and spills).  The launch counts are set to 0 just before each
+path is driven and read just after it.
 
 Imports nothing of JAX or of the reference package.  Exits with code 2 and
 prints no result when no CUDA device is present or when the port's sources
@@ -255,10 +262,11 @@ def hold_against_plain(name: str, args, out) -> float:
 
 
 # ------------------------------------------------------ bounds per kernel ----
-def bound(name: str, args) -> tuple[float, str]:
+def bound(name: str, args) -> tuple[float, str, int]:
     """Least time for the work on these inputs: max(bytes moved / memory
     rate, float32 operations / peak rate), each input read once and each
-    output written once; data-dependent work counted from these inputs."""
+    output written once; data-dependent work counted from these inputs.
+    Returns (ms, side, bytes)."""
     starts, coeffs, q = args
     B, T = q.shape
     K = coeffs.shape[-1]
@@ -278,7 +286,30 @@ def bound(name: str, args) -> tuple[float, str]:
         ops = B * T * 3 + pieces * T * 24     # tol; per piece: both branches
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    side = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), side, nbytes
+
+
+def kernel_ptxas(mod, prefix: str) -> dict:
+    """Registers and spill bytes of each kernel of ``mod``'s library whose
+    name starts with ``prefix``, from ``ptxas -v`` in the build log beside
+    the library; a template instance as ``name<args>``."""
+    import re
+
+    from repro_torch.kernels.build import ptxas_usage
+
+    log = Path(mod.library()._name).with_suffix(".log").read_text()
+    pat = re.compile(r"\d(" + prefix + r"[a-z0-9_]*?kernel)((?:I(?:Li\d+E)+E)?)")
+    out = {}
+    for name, use in ptxas_usage(log).items():
+        # the length prefix of the mangled name precedes the kernel's name
+        m = pat.search(name)
+        if not m:
+            out[name] = use
+            continue
+        args = re.findall(r"Li(\d+)E", m.group(2))
+        out[f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)] = use
+    return out
 
 
 # -------------------------------------------------------------- phases ----
@@ -314,10 +345,89 @@ def phase_build():
     emit("build", seconds=time.perf_counter() - t0, libraries=libs)
 
 
+#: (B, T, P, K, F) of phase_kernels: B and T off the block multiples, T from
+#: 1 to 4097; P, K and F inside the "vec" kernels' range (P <= 16, K <= 3,
+#: F <= 4) and outside it (P up to 64, F up to 6: the "tile" route only)
+KERNEL_CASES = [(1, 1, 1, 1, 1), (7, 129, 3, 2, 3), (37, 1000, 64, 3, 5),
+                (513, 77, 17, 1, 2), (2049, 300, 5, 3, 6), (10, 4097, 40, 2, 4),
+                (3, 1, 9, 3, 2), (129, 3, 16, 3, 4), (1001, 77, 9, 3, 2),
+                (33, 1025, 5, 2, 1), (17, 4097, 12, 1, 3), (64, 1024, 9, 3, 2),
+                (250, 1024, 16, 1, 4)]
+
+
+def kernel_case(rng, B: int, T: int, P: int, K: int, F: int):
+    """Seeded ragged inputs: duplicate starts (jumps) in some rows, padding
+    pieces, absent slots, monotone pieces (rising values, non-negative slopes
+    and curvature), queries beyond both ends, levels never reached."""
+    import numpy as np
+
+    starts = np.sort(rng.uniform(0.0, 50.0, (B, F, P)), -1)
+    starts[..., 0] = 0.0
+    if P > 2:   # a duplicate start (a jump) in some rows
+        starts[::3, :, 2] = starts[::3, :, 1]
+    n_real = rng.integers(1, P + 1, (B, F))
+    starts[np.arange(P)[None, None] >= n_real[..., None]] = 1e30
+    absent = rng.random((B, F)) < 0.25
+    absent[0, 0] = False
+    starts[absent] = 1e30
+    coeffs = np.zeros((B, F, P, K))
+    coeffs[..., 0] = np.cumsum(rng.uniform(0.0, 20.0, (B, F, P)), -1)
+    if K > 1:
+        coeffs[..., 1] = rng.uniform(0.0, 3.0, (B, F, P))
+    if K > 2:
+        coeffs[..., 2] = np.where(rng.random((B, F, P)) < 0.5,
+                                  rng.uniform(0.0, 0.3, (B, F, P)), 0.0)
+    q = rng.uniform(-2.0, 60.0, (B, T))
+    top = coeffs[..., 0].max(-1).max(-1)
+    y = rng.uniform(-0.1, 1.5, (B, T)) * (top[:, None] + 1.0)
+    return starts, coeffs, q, y
+
+
+def misaligned(x):
+    """A contiguous copy of ``x`` whose address is 4 bytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    import torch
+
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    shift = (1 - flat.data_ptr() % 16 // 4) % 4
+    out = flat[shift:shift + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def hold_routes(name: str, args, counts: dict) -> float:
+    """Every route that takes the shape, each against the plain version;
+    where both do, "vec" against "tile" bit for bit.  Returns the max abs
+    error."""
+    import torch
+    from repro_torch.kernels.ppoly_eval import kernel
+
+    launch = kernel.launch_eval if name == "ppoly_eval" else kernel.launch_min_eval
+    starts, coeffs, _q = args
+    P, K = starts.shape[-1], coeffs.shape[-1]
+    F = starts.shape[1] if name == "ppoly_min_eval" else 1
+    outs, worst = {}, 0.0
+    for rt in ("vec", "tile") if kernel.route(P, K, F) == "vec" else ("tile",):
+        outs[rt] = launch(rt, *args)
+        torch.cuda.synchronize()
+        worst = max(worst, hold_against_plain(name, args, outs[rt]))
+        counts[rt] += 1
+    if len(outs) == 2:
+        pairs = (zip(outs["vec"], outs["tile"]) if name == "ppoly_min_eval"
+                 else [(outs["vec"], outs["tile"])])
+        for a, b in pairs:
+            check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                  f"{name} {tuple(args[2].shape)}: the vec route differs from "
+                  f"the tile route")
+        counts["bitwise"] += 1
+    return worst
+
+
 def phase_kernels():
-    """Seeded random ragged shapes: B and T off the block multiples, P up to
-    64, K in 1..3, F up to 6 with absent slots, quadratic crossings and
-    levels never reached."""
+    """:data:`KERNEL_CASES`: each kernel through its wrapper (the route
+    :func:`kernel.route` names) against the plain version; evaluation and
+    the minimum also on each route apart (:func:`hold_routes`), and once
+    more with a q that is not 16-byte aligned."""
     import numpy as np
     import torch
     from repro_torch.kernels.ppoly_eval import kernel
@@ -325,30 +435,10 @@ def phase_kernels():
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     worst = {n: 0.0 for n in KERNELS}
+    counts = {"vec": 0, "tile": 0, "bitwise": 0, "misaligned": 0}
     cases = 0
-    for B, T, P, K in [(1, 1, 1, 1), (7, 129, 3, 2), (37, 1000, 64, 3),
-                       (513, 77, 17, 1), (2049, 300, 5, 3), (10, 4097, 40, 2)]:
-        F = int(rng.integers(1, 7))
-        starts = np.sort(rng.uniform(0.0, 50.0, (B, F, P)), -1)
-        starts[..., 0] = 0.0
-        if P > 2:   # a duplicate start (a jump) in some rows
-            starts[::3, :, 2] = starts[::3, :, 1]
-        n_real = rng.integers(1, P + 1, (B, F))
-        starts[np.arange(P)[None, None] >= n_real[..., None]] = 1e30
-        absent = rng.random((B, F)) < 0.25
-        absent[0, 0] = False
-        starts[absent] = 1e30
-        # monotone pieces: non-negative slopes and curvature, rising values
-        coeffs = np.zeros((B, F, P, K))
-        coeffs[..., 0] = np.cumsum(rng.uniform(0.0, 20.0, (B, F, P)), -1)
-        if K > 1:
-            coeffs[..., 1] = rng.uniform(0.0, 3.0, (B, F, P))
-        if K > 2:
-            coeffs[..., 2] = np.where(rng.random((B, F, P)) < 0.5,
-                                      rng.uniform(0.0, 0.3, (B, F, P)), 0.0)
-        q = rng.uniform(-2.0, 60.0, (B, T))
-        top = coeffs[..., 0].max(-1).max(-1)
-        y = rng.uniform(-0.1, 1.5, (B, T)) * (top[:, None] + 1.0)
+    for B, T, P, K, F in KERNEL_CASES:
+        starts, coeffs, q, y = kernel_case(rng, B, T, P, K, F)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),  # noqa: E731
                                       device=dev)
         calls = [
@@ -360,8 +450,14 @@ def phase_kernels():
             out = getattr(kernel, f"{name}_cuda")(*args)
             torch.cuda.synchronize()
             worst[name] = max(worst[name], hold_against_plain(name, args, out))
+            if name != "ppoly_first_crossing":
+                worst[name] = max(worst[name], hold_routes(name, args, counts))
+                if T > 1:
+                    shifted = (*args[:2], misaligned(args[2]))
+                    worst[name] = max(worst[name], hold_routes(name, shifted, counts))
+                    counts["misaligned"] += 1
             cases += 1
-    emit("kernels", cases=cases, tol=TOL, max_abs_err=worst)
+    emit("kernels", cases=cases, tol=TOL, max_abs_err=worst, route_calls=counts)
 
 
 # ------------------------------------------------------ flash attention ----
@@ -915,24 +1011,6 @@ def phase_lm_serve_rwkv(cfg, model) -> int:
     return launches
 
 
-def wkv_ptxas() -> dict:
-    """Registers and spill bytes of each wkv6 kernel, from ``ptxas -v`` in
-    the build log beside the library."""
-    import re
-
-    from repro_torch.kernels.build import ptxas_usage
-    from repro_torch.kernels.wkv6 import kernel as wk
-
-    log = Path(wk.library()._name).with_suffix(".log").read_text()
-    out = {}
-    for name, use in ptxas_usage(log).items():
-        # the length prefix of the mangled name precedes the kernel's name
-        m = re.search(r"\d(wkv6_[a-z_]*?kernel)(?:ILi(\d+)E)?", name)
-        out[f"{m.group(1)}<{m.group(2)}>" if m and m.group(2) else
-            (m.group(1) if m else name)] = use
-    return out
-
-
 def wkv_row(launches: dict, err: float, first) -> dict:
     """Times at the lm_prefill_rwkv shape by CUDA events: the op (the
     chunked route; the smaller of two runs around the plain version), its
@@ -976,7 +1054,7 @@ def wkv_row(launches: dict, err: float, first) -> dict:
             "library_note": "no single PyTorch call computes the wkv recurrence",
             "phase1_ms": phase_ms[0], "phase2_ms": phase_ms[1],
             "serial_kernel_ms": serial_ms, "scratch_bytes": scratch_bytes,
-            "ptxas": wkv_ptxas(),
+            "ptxas": kernel_ptxas(wk, "wkv6_"),
             "shape": {"r": list(r.shape), "chunk": chunk, "dtype": str(r.dtype)},
             "decode_shape": {"r": list(dec[0].shape), "ms": dec_ms,
                              "chunked_ms": dec_chunked_ms,
@@ -1050,14 +1128,21 @@ def phase_sweep_b10k(paper, scenarios):
 
 
 def phase_queries(rep):
+    """The Report's curve queries at T = 1024 on every process: checked, and
+    each call's host wall time (ending in a synchronize; the broadcast of
+    ts, the copies to the card and back included).  Returns (shapes, host
+    seconds per call in call order)."""
     import numpy as np
 
     ts = np.linspace(0.0, float(np.max(rep.makespans)) * 1.05, T_QUERIES)
-    shapes = {}
+    shapes, walls = {}, []
     for pn in rep.order:
-        prog = rep.sample_progress(pn, ts)
-        vals, arg = rep.data_ceiling(pn, ts)
-        fin = rep.kernel_finish_times(pn)
+        wall, prog = host_s(lambda: rep.sample_progress(pn, ts))
+        walls.append(("sample_progress", pn, wall))
+        wall, (vals, arg) = host_s(lambda: rep.data_ceiling(pn, ts))
+        walls.append(("data_ceiling", pn, wall))
+        wall, fin = host_s(lambda: rep.kernel_finish_times(pn))
+        walls.append(("kernel_finish_times", pn, wall))
         check(prog.shape == (rep.B, T_QUERIES) and np.isfinite(prog).all(),
               f"sample_progress {pn}: shape {prog.shape} / non-finite")
         check(vals.shape == arg.shape == (rep.B, T_QUERIES),
@@ -1069,7 +1154,80 @@ def phase_queries(rep):
                                    err_msg=f"kernel_finish_times {pn}")
         shapes[pn] = {"progress": list(prog.shape), "ceiling_slots":
                       len(rep.proc_results[pn].ceilings)}
-    return shapes
+    return shapes, walls
+
+
+def query_host_times(walls, calls) -> dict:
+    """Per Report call, in call order: its host wall time and the device
+    time of the one kernel it launched (queued, back to back) on the same
+    inputs, and the kernel's share of the wall time."""
+    from repro_torch.kernels.ppoly_eval import kernel
+    from repro_torch.kernels.ppoly_eval.variants import queued_ms
+
+    kernel_of = {"sample_progress": "ppoly_eval", "data_ceiling": "ppoly_min_eval",
+                 "kernel_finish_times": "ppoly_first_crossing"}
+    check([kernel_of[c] for c, _p, _w in walls] == [n for n, _a, _o in calls],
+          "the Report's calls and the kernel launches do not pair up")
+    out = {}
+    for (call, pn, wall), (name, args, _o) in zip(walls, calls):
+        k_ms = queued_ms(lambda: getattr(kernel, f"{name}_cuda")(*args), iters=5)
+        out.setdefault(call, []).append(
+            {"proc": pn, "wall_ms": wall * 1e3, "kernel_ms": k_ms,
+             "kernel_share": k_ms / (wall * 1e3)})
+    return out
+
+
+def ppoly_ptxas(P: int, K: int) -> dict:
+    """Registers and spill bytes of the two "tile" kernels and of the "vec"
+    instances for (P, K), from ``ptxas -v`` in the build log."""
+    from repro_torch.kernels.ppoly_eval import kernel
+
+    want = {f"ppoly_eval_vec_kernel<{P},{K}>", f"ppoly_min_eval_vec_kernel<{P},{K}>",
+            "ppoly_eval_kernel", "ppoly_min_eval_kernel"}
+    return {k: v for k, v in kernel_ptxas(kernel, "ppoly_").items() if k in want}
+
+
+def ppoly_row(name: str, args, launches: dict, err: float) -> dict:
+    """Times at the main path's largest call: the op (the "vec" route;
+    queued back to back, the smaller of two runs around the plain version),
+    the same with the L2 flushed between launches, the "tile" route on the
+    same inputs, the plain version; achieved bytes/s and share of the
+    bound."""
+    import torch
+    from repro_torch.kernels.ppoly_eval import kernel, ref
+    from repro_torch.kernels.ppoly_eval.variants import queued_ms
+
+    cuda_fn = getattr(kernel, f"{name}_cuda")
+    plain_fn = getattr(ref, f"{name}_ref")
+    row = {"name": name, "route": "cuda", "source": SOURCE,
+           "replaces": KERNELS[name], "launches": launches[name]}
+    ms = queued_ms(lambda: cuda_fn(*args))
+    plain_ms = cuda_ms(lambda: plain_fn(*args), iters=5)
+    ms2 = queued_ms(lambda: cuda_fn(*args))
+    b_ms, b_by, nbytes = bound(name, args)
+    best = min(ms, ms2)
+    row.update({"max_abs_err": err, "ms": best, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "library_note": "no single PyTorch call evaluates a piecewise "
+                "polynomial", "tb_s": nbytes / best / 1e9,
+                "share_of_bound": b_ms / best})
+    if name in ("ppoly_eval", "ppoly_min_eval"):
+        starts, coeffs, _q = args
+        launch = kernel.launch_eval if name == "ppoly_eval" else kernel.launch_min_eval
+        flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+        flushed = queued_ms(lambda: cuda_fn(*args), flush=flush)
+        tile_ms = queued_ms(lambda: launch("tile", *args))
+        tile_flushed = queued_ms(lambda: launch("tile", *args), flush=flush)
+        del flush
+        row.update({"launches_vec": launches[f"{name}_vec"],
+                    "launches_tile": launches[f"{name}_tile"],
+                    "flushed_ms": flushed, "flushed_tb_s": nbytes / flushed / 1e9,
+                    "flushed_share_of_bound": b_ms / flushed,
+                    "tile_ms": tile_ms, "tile_flushed_ms": tile_flushed,
+                    "ptxas": ppoly_ptxas(starts.shape[-1], coeffs.shape[-1])})
+    row["shape"] = {"starts": list(args[0].shape), "coeffs": list(args[1].shape),
+                    "q": list(args[2].shape)}
+    return row
 
 
 def main() -> int:
@@ -1095,7 +1253,7 @@ def main() -> int:
 
     from repro_torch.analysis import scenarios
     from repro_torch.configs import paper_workflow as paper
-    from repro_torch.kernels.ppoly_eval import kernel, ref
+    from repro_torch.kernels.ppoly_eval import kernel
 
     smi = phase_env()
     phase_build()
@@ -1108,37 +1266,28 @@ def main() -> int:
         reset_launches()
         phase_sweep_fig7(paper)
         rep = phase_sweep_b10k(paper, scenarios)
-        shapes = phase_queries(rep)
+        shapes, walls = phase_queries(rep)
         torch.cuda.synchronize()
         launches = read_launches()
     errs = {n: 0.0 for n in KERNELS}
     for name, args, out in rec.calls:
         errs[name] = max(errs[name], hold_against_plain(name, args, out))
+    host = query_host_times(walls, rec.calls)
     emit("queries", T=T_QUERIES, B=rep.B, calls=len(rec.calls),
-         launches=launches, max_abs_err=errs, shapes=shapes)
+         launches=launches, max_abs_err=errs, shapes=shapes, host=host)
     for name in KERNELS:
         check(launches[name] > 0, f"{name} never launched on the main path")
+    for name in ("ppoly_eval", "ppoly_min_eval"):
+        check(launches[name] == launches[f"{name}_vec"] == len(rep.order),
+              f"{launches[name]} {name} calls, {launches[f'{name}_vec']} on the "
+              f"vec route, {len(rep.order)} processes")
 
     # ---- times at the main path's shapes (the largest call per kernel) ----
     rows = []
     for name in KERNELS:
         args = max((a for n, a, _o in rec.calls if n == name),
                    key=lambda a: sum(x.numel() for x in a))
-        cuda_fn = getattr(kernel, f"{name}_cuda")
-        plain_fn = getattr(ref, f"{name}_ref")
-        ms = cuda_ms(lambda: cuda_fn(*args))
-        plain_ms = cuda_ms(lambda: plain_fn(*args), iters=5)
-        ms2 = cuda_ms(lambda: cuda_fn(*args))
-        b_ms, b_by = bound(name, args)
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": KERNELS[name], "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": min(ms, ms2),
-                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None, "library_note": "no single PyTorch "
-                     "call evaluates a piecewise polynomial",
-                     "shape": {"starts": list(args[0].shape),
-                               "coeffs": list(args[1].shape),
-                               "q": list(args[2].shape)}})
+        rows.append(ppoly_row(name, args, launches, errs[name]))
     analysis_peak = torch.cuda.max_memory_allocated()
     del rec, rep, args
     gc.collect()

@@ -615,7 +615,10 @@ def _min2(f: PPoly, fseg: list, g: PPoly, g_idx: int):
         for r in poly_real_roots(diff.coeffs[i], 0.0, hi):
             if r > TIME_TOL:
                 cut.append(s + r)
-    allpts = sorted(set(merged) | set(cut))
+    # f's attribution switches too: simplify() may have merged f's pieces
+    # across a switch, and a g that ties f over the span would hide it
+    switches = [float(ss) for ss, _ in fseg if ss > s0]
+    allpts = sorted(set(merged) | set(cut) | set(switches))
     pts: list[float] = []
     for p in allpts:
         if not pts or p - pts[-1] > TIME_TOL:

@@ -1,32 +1,61 @@
 // Batched piecewise-polynomial queries on Hopper (sm_90a).
 //
-// Three launchers with a plain C interface, bound with ctypes by
+// Launchers with a plain C interface, bound with ctypes by
 // repro_torch/kernels/ppoly_eval/kernel.py:
 //
-//   ppoly_eval_launch            replaces repro/kernels/ppoly_eval/kernel.py
-//                                ppoly_eval_pallas (_ppoly_kernel/_eval_one)
-//   ppoly_min_eval_launch        replaces ppoly_min_eval_pallas
-//                                (_ppoly_min_kernel)
+//   ppoly_eval_vec_launch        replace repro/kernels/ppoly_eval/kernel.py
+//   ppoly_eval_launch              ppoly_eval_pallas (_ppoly_kernel/_eval_one)
+//   ppoly_min_eval_vec_launch    replace ppoly_min_eval_pallas
+//   ppoly_min_eval_launch          (_ppoly_min_kernel)
 //   ppoly_first_crossing_launch  replaces ppoly_first_crossing_pallas
 //                                (_first_crossing_kernel with
 //                                ref.first_crossing_candidates)
 //
-// What bounds them: all three are memory-bound on this card.  A query reads
-// one float32 (q or y) and writes one or two (value, argmin); the piece
-// tables are small (P*(1+K) floats per row) and are read once per block.
-// Example: ppoly_eval at B = 10,000, T = 1024, P = 3, K = 2 moves about
-// 82 MB (q and out dominate), about 24 us at 3.35 TB/s, while its float32
-// work is about 0.2 GFLOP, about 3 us at 67 TFLOP/s.
+// What bounds them: all are memory-bound on this card.  A query reads one
+// float32 (q or y) and writes one or two (value, argmin); the piece tables
+// are small (P*(1+K) floats per function and row).  At the analysis path's
+// shape (B = 10,000, T = 1024, P = 9, K = 3) ppoly_eval moves 83.4 MB, about
+// 25 us at 3.35 TB/s, while its float32 work is about 0.2 GFLOP, about 3 us
+// at 67 TFLOP/s; ppoly_min_eval at F = 2 moves 126 MB, about 38 us.
 //
-// Design: one thread per (b, t) query; a block covers a tile of rows times
-// 128 queries, so neighbouring threads read neighbouring q and write
-// neighbouring outputs (coalesced 128-byte lines).  The block stages its
-// rows' piece tables in shared memory once, and every query thread of the
-// row reads them from there.  Each thread selects its piece by counting
-// `start <= t` over all P pieces, exactly as the reference does, so
-// duplicate starts (jumps) resolve to the same piece; then it runs Horner on
-// that one piece.  The TPU kernel's one-hot masked Horner and its 8 x 128
-// blocks are not carried over: they exist for the TPU's vector lanes.
+// Two routes for evaluation and for the minimum, chosen by shape alone:
+//
+// * "vec" (P <= 16, K <= 3, F <= 4; every call of the analysis path).  The
+//   card has to keep about 18 KB of loads in flight on each SM to reach its
+//   memory rate (3.35 TB/s times about 0.7 us of latency, over 132 SMs), and
+//   no second latency may stand in series with the first.  So one warp takes
+//   one row and a span of up to 256 of its queries: each lane issues two
+//   16-byte loads of q (ld.global.nc, no L1 allocation: the data is touched
+//   once) before anything else, 1 KB a warp: about 48 KB an SM for the
+//   evaluation (40 registers a thread) and 28 KB for the minimum (72, its 9
+//   running minima and argmins); then it loads the row's tables into the
+//   warp's own slice of shared memory (__syncwarp, no block barrier), so
+//   both loads are in flight together.  The starts sit in registers
+//   (templated on P and K, so the count is unrolled); the chosen piece's
+//   start and coefficients are read from shared memory by index (conflict-
+//   free: K is 1, 2 or 3 and P <= 16).  Results leave as 16-byte streaming
+//   stores (st.global.cs).  A row whose first query is not 16-byte aligned
+//   (T % 4 != 0) has a scalar head of up to 3 queries and a scalar tail of up
+//   to 3, taken by lanes of the row's first warp; the wrapper gives the
+//   outputs the alignment of q.  Blocks of 4 warps, one warp per (row, span):
+//   10,000 blocks at the analysis path's shape.  (Four or eight loads a
+//   lane, or blocks of 8 warps, measured slower:
+//   kernels/ppoly_eval/variants.py.)  That more loads in flight buy nothing
+//   points at the arithmetic for what is left to the bound: the count of
+//   starts costs about two instructions a piece and a query, and each warp
+//   computes between its loads and its stores.
+// * "tile" (the rest: P up to 64, F up to 6 in the checks): the first
+//   design.  One thread per (b, t) query, blocks of 4 rows x 128 queries
+//   that stage their rows' piece tables in shared memory behind a block
+//   barrier, then load q.  The crossing kernel keeps this layout.
+//
+// Both routes select the piece by counting `start <= t` over all P pieces,
+// exactly as the reference does, so duplicate starts (jumps) resolve to the
+// same piece; then run Horner on that one piece; the minimum skips absent
+// slots (first start >= 5e29) and keeps the lowest slot on ties (strict <).
+// The two routes therefore give the same bits.  The TPU kernel's one-hot
+// masked Horner and its 8 x 128 blocks are not carried over: they exist for
+// the TPU's vector lanes.
 //
 // Arithmetic: built without fast math and with -fmad=false, so every
 // multiply and add rounds as in the plain PyTorch version, division and sqrt
@@ -34,6 +63,9 @@
 // the same numbers.
 
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
 
 namespace {
 
@@ -195,6 +227,296 @@ __global__ void ppoly_first_crossing_kernel(const float* __restrict__ starts,
   out[(long long)b * T + j] = best;
 }
 
+// ---------------------------------------------------------- "vec" route ----
+constexpr int kVecWarps = 4;              // warps per block, one (row, span) each
+constexpr int kVecLoads = 2;              // 16-byte q loads per lane per span
+constexpr int kSpan4 = 32 * kVecLoads;    // float4s of one row per warp (256 queries)
+constexpr int kVecQ = 4 * kVecLoads + 1;  // queries per lane: vector, then one scalar
+constexpr int kVecMaxP = 16;
+constexpr int kVecMaxF = 4;
+
+__device__ __forceinline__ float4 load_stream4(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float load_stream(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// One warp's share of a row: float4s [i0, i0 + kSpan4) of the row's aligned
+// body and, in the row's first span, one scalar query of the head or the
+// tail for lanes 0-2 and 4-6.
+struct Span {
+  long long off;  // b * T: the row's first query
+  int head;       // scalar queries before the row's first 16-byte boundary
+  int n4;         // float4s in the aligned body
+  int i0;         // this span's first float4
+  int js;         // this lane's scalar query (column), or -1
+};
+
+__device__ __forceinline__ Span span_of(const float* q, int b, int u, int T,
+                                        int lane) {
+  Span sp;
+  sp.off = (long long)b * T;
+  const int mis = (int)((reinterpret_cast<uintptr_t>(q + sp.off) >> 2) & 3);
+  sp.head = min(T, (4 - mis) & 3);
+  sp.n4 = (T - sp.head) >> 2;
+  const int tail = (T - sp.head) & 3;
+  sp.i0 = u * kSpan4;
+  sp.js = -1;
+  if (u == 0) {
+    if (lane < sp.head) {
+      sp.js = lane;
+    } else if (lane >= 4 && lane < 4 + tail) {
+      sp.js = sp.head + 4 * sp.n4 + (lane - 4);
+    }
+  }
+  return sp;
+}
+
+// Every q load of the lane, issued before anything else of the warp.
+__device__ __forceinline__ void load_queries(const float* q, const Span& sp,
+                                             int lane,
+                                             float4 (&qv)[kVecLoads],
+                                             float& qs) {
+  const float4* q4 = reinterpret_cast<const float4*>(q + sp.off + sp.head);
+#pragma unroll
+  for (int v = 0; v < kVecLoads; ++v) {
+    const int i = sp.i0 + v * 32 + lane;
+    qv[v] = i < sp.n4 ? load_stream4(q4 + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  qs = sp.js >= 0 ? load_stream(q + sp.off + sp.js) : 0.0f;
+}
+
+// The row's n_s starts, then its n_c coefficients, into the warp's slice of
+// shared memory (at most N floats): all loads first, then the stores, then
+// a warp barrier.  Issued after the q loads, so both are in flight at once.
+template <int N>
+__device__ __forceinline__ void stage_row(float* tab,
+                                          const float* __restrict__ s, int n_s,
+                                          const float* __restrict__ c, int n_c,
+                                          int lane) {
+  constexpr int kPerLane = (N + 31) / 32;
+  float r[kPerLane];
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int i = lane + 32 * j;
+    r[j] = i < n_s ? __ldg(s + i) : (i < n_s + n_c ? __ldg(c + (i - n_s)) : 0.0f);
+  }
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int i = lane + 32 * j;
+    if (i < n_s + n_c) tab[i] = r[j];
+  }
+  __syncwarp();
+}
+
+// Value at t of one function: its P starts in registers (s) and in shared
+// memory (tab_s), its coefficients in shared memory (tab_c, P x K).  The
+// piece is the count of starts <= t, less one, at least 0; then Horner.
+template <int P, int K>
+__device__ __forceinline__ float piece_value(const float (&s)[P],
+                                             const float* tab_s,
+                                             const float* tab_c, float t) {
+  int cnt = 0;
+#pragma unroll
+  for (int p = 0; p < P; ++p) cnt += (s[p] <= t) ? 1 : 0;
+  const int idx = cnt > 0 ? cnt - 1 : 0;
+  const float u = t - tab_s[idx];
+  const float* c = tab_c + idx * K;
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = K - 1; k >= 0; --k) acc = acc * u + c[k];
+  return acc;
+}
+
+// Warp w of the grid takes row w / spans, span w % spans.
+__device__ __forceinline__ bool warp_span(int B, int spans, int* b, int* u) {
+  const long long w = (long long)blockIdx.x * kVecWarps + (threadIdx.x >> 5);
+  if (w >= (long long)B * spans) return false;
+  *b = (int)(w / spans);
+  *u = (int)(w - (long long)*b * spans);
+  return true;
+}
+
+template <int P, int K>
+__global__ void __launch_bounds__(kVecWarps * 32)
+ppoly_eval_vec_kernel(const float* __restrict__ starts,
+                      const float* __restrict__ coeffs,
+                      const float* __restrict__ q, float* __restrict__ out,
+                      int B, int T, int spans) {
+  __shared__ float table[kVecWarps][P * (1 + K)];
+  int b, u;
+  if (!warp_span(B, spans, &b, &u)) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const Span sp = span_of(q, b, u, T, lane);
+  float4 qv[kVecLoads];
+  float qs;
+  load_queries(q, sp, lane, qv, qs);
+  float* tab = table[threadIdx.x >> 5];
+  stage_row<P * (1 + K)>(tab, starts + (long long)b * P, P,
+                         coeffs + (long long)b * P * K, P * K, lane);
+  float s[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) s[p] = tab[p];
+  const float* tc = tab + P;
+  float4* o4 = reinterpret_cast<float4*>(out + sp.off + sp.head);
+#pragma unroll
+  for (int v = 0; v < kVecLoads; ++v) {
+    const int i = sp.i0 + v * 32 + lane;
+    if (i < sp.n4) {
+      float4 r;
+      r.x = piece_value<P, K>(s, tab, tc, qv[v].x);
+      r.y = piece_value<P, K>(s, tab, tc, qv[v].y);
+      r.z = piece_value<P, K>(s, tab, tc, qv[v].z);
+      r.w = piece_value<P, K>(s, tab, tc, qv[v].w);
+      __stcs(o4 + i, r);
+    }
+  }
+  if (sp.js >= 0) __stcs(out + sp.off + sp.js, piece_value<P, K>(s, tab, tc, qs));
+}
+
+template <int P, int K>
+__global__ void __launch_bounds__(kVecWarps * 32)
+ppoly_min_eval_vec_kernel(const float* __restrict__ starts,
+                          const float* __restrict__ coeffs,
+                          const float* __restrict__ q,
+                          float* __restrict__ vals, int* __restrict__ arg,
+                          int B, int F, int T, int spans) {
+  __shared__ float table[kVecWarps][kVecMaxF * P * (1 + K)];
+  int b, u;
+  if (!warp_span(B, spans, &b, &u)) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const Span sp = span_of(q, b, u, T, lane);
+  float4 qv[kVecLoads];
+  float qs;
+  load_queries(q, sp, lane, qv, qs);
+  float* tab = table[threadIdx.x >> 5];
+  stage_row<kVecMaxF * P * (1 + K)>(tab, starts + (long long)b * F * P, F * P,
+                                    coeffs + (long long)b * F * P * K,
+                                    F * P * K, lane);
+  float best[kVecQ];
+  int who[kVecQ];
+#pragma unroll
+  for (int j = 0; j < kVecQ; ++j) {
+    best[j] = kBig;
+    who[j] = 0;
+  }
+  for (int f = 0; f < F; ++f) {
+    const float* ts = tab + f * P;
+    if (!(ts[0] < kPadHalf)) continue;      // absent slot (the whole warp)
+    const float* tc = tab + F * P + f * P * K;
+    float s[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) s[p] = ts[p];
+#pragma unroll
+    for (int j = 0; j < 4 * kVecLoads; ++j) {
+      const float v = piece_value<P, K>(s, ts, tc, lane_of(qv[j / 4], j % 4));
+      if (v < best[j]) {                    // strict: ties keep the lowest f
+        best[j] = v;
+        who[j] = f;
+      }
+    }
+    if (sp.js >= 0) {
+      const float v = piece_value<P, K>(s, ts, tc, qs);
+      if (v < best[kVecQ - 1]) {
+        best[kVecQ - 1] = v;
+        who[kVecQ - 1] = f;
+      }
+    }
+  }
+  float4* v4 = reinterpret_cast<float4*>(vals + sp.off + sp.head);
+  int4* a4 = reinterpret_cast<int4*>(arg + sp.off + sp.head);
+#pragma unroll
+  for (int v = 0; v < kVecLoads; ++v) {
+    const int i = sp.i0 + v * 32 + lane;
+    if (i < sp.n4) {
+      __stcs(v4 + i, make_float4(best[4 * v], best[4 * v + 1], best[4 * v + 2],
+                                 best[4 * v + 3]));
+      __stcs(a4 + i, make_int4(who[4 * v], who[4 * v + 1], who[4 * v + 2],
+                               who[4 * v + 3]));
+    }
+  }
+  if (sp.js >= 0) {
+    __stcs(vals + sp.off + sp.js, best[kVecQ - 1]);
+    __stcs(arg + sp.off + sp.js, who[kVecQ - 1]);
+  }
+}
+
+// Warps per row: the aligned body of any row holds at most T / 4 float4s.
+int vec_spans(int T) {
+  const int n4 = T / 4;
+  return n4 > kSpan4 ? (n4 + kSpan4 - 1) / kSpan4 : 1;
+}
+
+bool vec_grid(int B, int T, int* spans, unsigned* blocks) {
+  *spans = vec_spans(T);
+  const long long n = ((long long)B * *spans + kVecWarps - 1) / kVecWarps;
+  *blocks = (unsigned)n;
+  return n <= INT_MAX;
+}
+
+template <int P, int K>
+cudaError_t eval_vec(const float* starts, const float* coeffs, const float* q,
+                     float* out, int B, int T, cudaStream_t stream) {
+  int spans;
+  unsigned blocks;
+  if (!vec_grid(B, T, &spans, &blocks)) return cudaErrorInvalidValue;
+  ppoly_eval_vec_kernel<P, K><<<blocks, kVecWarps * 32, 0, stream>>>(
+      starts, coeffs, q, out, B, T, spans);
+  return cudaGetLastError();
+}
+
+template <int P, int K>
+cudaError_t min_eval_vec(const float* starts, const float* coeffs,
+                         const float* q, float* vals, int* arg, int B, int F,
+                         int T, cudaStream_t stream) {
+  int spans;
+  unsigned blocks;
+  if (!vec_grid(B, T, &spans, &blocks)) return cudaErrorInvalidValue;
+  ppoly_min_eval_vec_kernel<P, K><<<blocks, kVecWarps * 32, 0, stream>>>(
+      starts, coeffs, q, vals, arg, B, F, T, spans);
+  return cudaGetLastError();
+}
+
+// The instance for a run-time P (1..kVecMaxP) at a compile-time K.
+template <int K, int P = 1>
+cudaError_t eval_vec_p(int p, const float* starts, const float* coeffs,
+                       const float* q, float* out, int B, int T,
+                       cudaStream_t stream) {
+  if constexpr (P > kVecMaxP) {
+    return cudaErrorInvalidValue;
+  } else {
+    return p == P ? eval_vec<P, K>(starts, coeffs, q, out, B, T, stream)
+                  : eval_vec_p<K, P + 1>(p, starts, coeffs, q, out, B, T,
+                                         stream);
+  }
+}
+
+template <int K, int P = 1>
+cudaError_t min_eval_vec_p(int p, const float* starts, const float* coeffs,
+                           const float* q, float* vals, int* arg, int B, int F,
+                           int T, cudaStream_t stream) {
+  if constexpr (P > kVecMaxP) {
+    return cudaErrorInvalidValue;
+  } else {
+    return p == P ? min_eval_vec<P, K>(starts, coeffs, q, vals, arg, B, F, T,
+                                       stream)
+                  : min_eval_vec_p<K, P + 1>(p, starts, coeffs, q, vals, arg,
+                                             B, F, T, stream);
+  }
+}
+
 // Rows per block so that the staged tables fit the default shared memory;
 // a single row that does not fit asks for the opt-in maximum.
 int rows_for(size_t floats_per_row) {
@@ -248,6 +570,33 @@ int ppoly_min_eval_launch(const float* starts, const float* coeffs,
   ppoly_min_eval_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       starts, coeffs, q, vals, arg, B, F, P, K, T);
   return (int)cudaGetLastError();
+}
+
+// The "vec" route: P <= 16, K <= 3, F <= 4.  The outputs must have q's
+// alignment modulo 16 bytes (the wrapper allocates them so).
+int ppoly_eval_vec_launch(const float* starts, const float* coeffs,
+                          const float* q, float* out, int B, int P, int K,
+                          int T, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (K) {
+    case 1: return (int)eval_vec_p<1>(P, starts, coeffs, q, out, B, T, st);
+    case 2: return (int)eval_vec_p<2>(P, starts, coeffs, q, out, B, T, st);
+    case 3: return (int)eval_vec_p<3>(P, starts, coeffs, q, out, B, T, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int ppoly_min_eval_vec_launch(const float* starts, const float* coeffs,
+                              const float* q, float* vals, int* arg, int B,
+                              int F, int P, int K, int T, void* stream) {
+  if (F < 1 || F > kVecMaxF) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (K) {
+    case 1: return (int)min_eval_vec_p<1>(P, starts, coeffs, q, vals, arg, B, F, T, st);
+    case 2: return (int)min_eval_vec_p<2>(P, starts, coeffs, q, vals, arg, B, F, T, st);
+    case 3: return (int)min_eval_vec_p<3>(P, starts, coeffs, q, vals, arg, B, F, T, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int ppoly_first_crossing_launch(const float* starts, const float* coeffs,

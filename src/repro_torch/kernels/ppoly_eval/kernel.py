@@ -5,14 +5,26 @@ top for what each kernel replaces and how it is laid out).  At first use
 :func:`library` compiles them with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface, under ``build/repro_torch/`` at the
 root of the checkout, keyed by a hash of the sources and flags, and loads it
-with :mod:`ctypes`.  Nothing is compiled or loaded when this module is
-imported.
+with :mod:`ctypes`; ``ptxas -v`` reports each kernel's registers and spills
+into the build log beside the library.  Nothing is compiled or loaded when
+this module is imported.
+
+Evaluation and the minimum each have two routes, and :func:`route` picks one
+by shape alone: ``"vec"`` (P <= 16, K <= 3, F <= 4: every call of the
+analysis path), one warp per row and span of 256 queries with 16-byte loads
+and stores; ``"tile"`` (the rest), the first design, one thread per query.
+Both give the same bits.  :func:`ppoly_eval_cuda` and
+:func:`ppoly_min_eval_cuda` launch the route :func:`route` names and add one
+to ``launches[name]`` and one to ``launches[f"{name}_{route}"]`` per call;
+:func:`launch_eval` and :func:`launch_min_eval` run a route named by the
+caller and count nothing, so that a check can hold each route against the
+plain version and against the other.
 
 Each wrapper checks device, dtype (float32), shape and contiguity, allocates
-its outputs with ``torch.empty``, launches on the current CUDA stream, raises
-if the launch was refused, and adds one to :data:`launches` under its name.
-The wrappers take CUDA tensors only; the public ops in :mod:`.ops` route CPU
-tensors to the plain versions in :mod:`.ref`.
+its outputs with ``torch.empty``, launches on the current CUDA stream and
+raises if the launch was refused.  The wrappers take CUDA tensors only; the
+public ops in :mod:`.ops` route CPU tensors to the plain versions in
+:mod:`.ref`.
 """
 
 from __future__ import annotations
@@ -25,30 +37,46 @@ import torch
 
 from ..build import build, build_dir, require_card
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build_dir", "launches", "library",
-           "ppoly_eval_cuda", "ppoly_first_crossing_cuda",
-           "ppoly_min_eval_cuda", "reset_launches"]
+__all__ = ["NVCC_FLAGS", "ROUTES", "SOURCES", "VEC_MAX_F", "VEC_MAX_K",
+           "VEC_MAX_P", "build_dir", "launch_eval", "launch_min_eval",
+           "launches", "library", "ppoly_eval_cuda", "ppoly_first_crossing_cuda",
+           "ppoly_min_eval_cuda", "reset_launches", "route"]
 
 _PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
 SOURCES = (_PKG / "csrc" / "ppoly_eval.cu",)
 #: no fast math: the crossing kernel's thresholds depend on IEEE division
 #: and sqrt; -fmad=false keeps each multiply and add rounded on its own, as
-#: in the plain PyTorch version
+#: in the plain PyTorch version; ``-Xptxas -v`` writes registers and spills
+#: into the build log
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
+ROUTES = ("vec", "tile")
+#: the shapes the "vec" kernels are instantiated for
+VEC_MAX_P, VEC_MAX_K, VEC_MAX_F = 16, 3, 4
 
-#: kernel launches per kernel, counted where each kernel is launched
-launches: dict[str, int] = {"ppoly_eval": 0, "ppoly_min_eval": 0,
-                            "ppoly_first_crossing": 0}
+#: kernel launches, counted where each kernel is launched: per kernel, and
+#: per route for the two kernels that have two
+launches: dict[str, int] = {
+    "ppoly_eval": 0, "ppoly_eval_vec": 0, "ppoly_eval_tile": 0,
+    "ppoly_min_eval": 0, "ppoly_min_eval_vec": 0, "ppoly_min_eval_tile": 0,
+    "ppoly_first_crossing": 0}
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
-_MAX_T = 65535 * 128          # grid.y limit times the queries per block
+_MAX_T = 65535 * 128          # "tile": grid.y limit times the queries per block
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def route(P: int, K: int, F: int = 1) -> str:
+    """The route of a call with P pieces of K coefficients (F functions for
+    the minimum): ``"vec"`` when P <= 16, K <= 3 and F <= 4, else
+    ``"tile"``."""
+    fits = P <= VEC_MAX_P and K <= VEC_MAX_K and F <= VEC_MAX_F
+    return "vec" if fits else "tile"
 
 
 def library() -> ctypes.CDLL:
@@ -59,12 +87,14 @@ def library() -> ctypes.CDLL:
             require_card()
             lib = ctypes.CDLL(str(build("ppoly_eval", SOURCES, NVCC_FLAGS)))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.ppoly_eval_launch.argtypes = [p, p, p, p, i, i, i, i, p]
-            lib.ppoly_min_eval_launch.argtypes = [p, p, p, p, p,
-                                                  i, i, i, i, i, p]
+            for fn in (lib.ppoly_eval_launch, lib.ppoly_eval_vec_launch):
+                fn.argtypes = [p, p, p, p, i, i, i, i, p]
+            for fn in (lib.ppoly_min_eval_launch, lib.ppoly_min_eval_vec_launch):
+                fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.ppoly_first_crossing_launch.argtypes = [p, p, p, p,
                                                         i, i, i, i, p]
-            for fn in (lib.ppoly_eval_launch, lib.ppoly_min_eval_launch,
+            for fn in (lib.ppoly_eval_launch, lib.ppoly_eval_vec_launch,
+                       lib.ppoly_min_eval_launch, lib.ppoly_min_eval_vec_launch,
                        lib.ppoly_first_crossing_launch):
                 fn.restype = ctypes.c_int
             _lib = lib
@@ -93,9 +123,18 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def ppoly_eval_cuda(starts: torch.Tensor, coeffs: torch.Tensor,
-                    q: torch.Tensor) -> torch.Tensor:
-    """starts (B, P) · coeffs (B, P, K) · q (B, T) -> (B, T) float32."""
+def _empty_out(q: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An empty (B, T) tensor of ``dtype`` (4-byte elements) whose address
+    has q's remainder modulo 16 bytes, as the "vec" kernels ask."""
+    B, T = q.shape
+    if q.data_ptr() % 16 == 0:
+        return torch.empty((B, T), dtype=dtype, device=q.device)
+    flat = torch.empty(B * T + 3, dtype=dtype, device=q.device)
+    shift = (q.data_ptr() - flat.data_ptr()) % 16 // 4
+    return flat[shift:shift + B * T].view(B, T)
+
+
+def _eval_args(starts, coeffs, q) -> tuple[int, int, int, int]:
     if starts.dim() != 2 or coeffs.dim() != 3 or q.dim() != 2:
         raise ValueError("ppoly_eval: expected starts (B,P), coeffs (B,P,K), "
                          "q (B,T)")
@@ -106,22 +145,12 @@ def ppoly_eval_cuda(starts: torch.Tensor, coeffs: torch.Tensor,
     _check("starts", starts, (B, P), dev)
     _check("coeffs", coeffs, (B, P, K), dev)
     _check("q", q, (B, T), dev)
-    if P < 1 or K < 1 or T > _MAX_T:
-        raise ValueError(f"ppoly_eval: unsupported P={P}, K={K}, T={T}")
-    out = torch.empty((B, T), dtype=torch.float32, device=dev)
-    if B and T:
-        lib = library()
-        _raise_on(lib.ppoly_eval_launch(
-            starts.data_ptr(), coeffs.data_ptr(), q.data_ptr(),
-            out.data_ptr(), B, P, K, T, _stream(dev)), "ppoly_eval")
-        launches["ppoly_eval"] += 1
-    return out
+    if P < 1 or K < 1:
+        raise ValueError(f"ppoly_eval: unsupported P={P}, K={K}")
+    return B, P, K, T
 
 
-def ppoly_min_eval_cuda(starts: torch.Tensor, coeffs: torch.Tensor,
-                        q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """starts (B, F, P) · coeffs (B, F, P, K) · q (B, T) ->
-    (vals (B, T) float32, argmin (B, T) int32)."""
+def _min_args(starts, coeffs, q) -> tuple[int, int, int, int, int]:
     if starts.dim() != 3 or coeffs.dim() != 4 or q.dim() != 2:
         raise ValueError("ppoly_min_eval: expected starts (B,F,P), coeffs "
                          "(B,F,P,K), q (B,T)")
@@ -132,19 +161,90 @@ def ppoly_min_eval_cuda(starts: torch.Tensor, coeffs: torch.Tensor,
     _check("starts", starts, (B, F, P), dev)
     _check("coeffs", coeffs, (B, F, P, K), dev)
     _check("q", q, (B, T), dev)
-    if F < 1 or P < 1 or K < 1 or T > _MAX_T:
-        raise ValueError(
-            f"ppoly_min_eval: unsupported F={F}, P={P}, K={K}, T={T}")
-    vals = torch.empty((B, T), dtype=torch.float32, device=dev)
-    arg = torch.empty((B, T), dtype=torch.int32, device=dev)
+    if F < 1 or P < 1 or K < 1:
+        raise ValueError(f"ppoly_min_eval: unsupported F={F}, P={P}, K={K}")
+    return B, F, P, K, T
+
+
+def _admit(name: str, rt: str, P: int, K: int, F: int, T: int) -> None:
+    if rt not in ROUTES:
+        raise ValueError(f"{name}: route {rt!r}, expected one of {ROUTES}")
+    if rt == "vec" and route(P, K, F) != "vec":
+        raise ValueError(f"{name}: the vec route takes P <= {VEC_MAX_P}, "
+                         f"K <= {VEC_MAX_K}, F <= {VEC_MAX_F}; got P={P}, "
+                         f"K={K}, F={F}")
+    if rt == "tile" and T > _MAX_T:
+        raise ValueError(f"{name}: the tile route takes T <= {_MAX_T}, got {T}")
+
+
+def _eval(rt: str, starts, coeffs, q, B: int, P: int, K: int,
+          T: int) -> torch.Tensor:
+    out = _empty_out(q, torch.float32)
     if B and T:
         lib = library()
-        _raise_on(lib.ppoly_min_eval_launch(
-            starts.data_ptr(), coeffs.data_ptr(), q.data_ptr(),
-            vals.data_ptr(), arg.data_ptr(), B, F, P, K, T, _stream(dev)),
-            "ppoly_min_eval")
-        launches["ppoly_min_eval"] += 1
+        fn = lib.ppoly_eval_vec_launch if rt == "vec" else lib.ppoly_eval_launch
+        _raise_on(fn(starts.data_ptr(), coeffs.data_ptr(), q.data_ptr(),
+                     out.data_ptr(), B, P, K, T, _stream(q.device)),
+                  f"ppoly_eval ({rt})")
+    return out
+
+
+def _min_eval(rt: str, starts, coeffs, q, B: int, F: int, P: int, K: int,
+              T: int) -> tuple[torch.Tensor, torch.Tensor]:
+    vals = _empty_out(q, torch.float32)
+    arg = _empty_out(q, torch.int32)
+    if B and T:
+        lib = library()
+        fn = lib.ppoly_min_eval_vec_launch if rt == "vec" else lib.ppoly_min_eval_launch
+        _raise_on(fn(starts.data_ptr(), coeffs.data_ptr(), q.data_ptr(),
+                     vals.data_ptr(), arg.data_ptr(), B, F, P, K, T,
+                     _stream(q.device)), f"ppoly_min_eval ({rt})")
     return vals, arg
+
+
+def ppoly_eval_cuda(starts: torch.Tensor, coeffs: torch.Tensor,
+                    q: torch.Tensor) -> torch.Tensor:
+    """starts (B, P) · coeffs (B, P, K) · q (B, T) -> (B, T) float32, by the
+    route :func:`route` names."""
+    B, P, K, T = _eval_args(starts, coeffs, q)
+    rt = route(P, K)
+    _admit("ppoly_eval", rt, P, K, 1, T)
+    out = _eval(rt, starts, coeffs, q, B, P, K, T)
+    if B and T:
+        launches["ppoly_eval"] += 1
+        launches[f"ppoly_eval_{rt}"] += 1
+    return out
+
+
+def launch_eval(rt: str, starts: torch.Tensor, coeffs: torch.Tensor,
+                q: torch.Tensor) -> torch.Tensor:
+    """:func:`ppoly_eval_cuda` on the route ``rt``; counts nothing."""
+    B, P, K, T = _eval_args(starts, coeffs, q)
+    _admit("ppoly_eval", rt, P, K, 1, T)
+    return _eval(rt, starts, coeffs, q, B, P, K, T)
+
+
+def ppoly_min_eval_cuda(starts: torch.Tensor, coeffs: torch.Tensor,
+                        q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """starts (B, F, P) · coeffs (B, F, P, K) · q (B, T) ->
+    (vals (B, T) float32, argmin (B, T) int32), by the route :func:`route`
+    names."""
+    B, F, P, K, T = _min_args(starts, coeffs, q)
+    rt = route(P, K, F)
+    _admit("ppoly_min_eval", rt, P, K, F, T)
+    out = _min_eval(rt, starts, coeffs, q, B, F, P, K, T)
+    if B and T:
+        launches["ppoly_min_eval"] += 1
+        launches[f"ppoly_min_eval_{rt}"] += 1
+    return out
+
+
+def launch_min_eval(rt: str, starts: torch.Tensor, coeffs: torch.Tensor,
+                    q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ppoly_min_eval_cuda` on the route ``rt``; counts nothing."""
+    B, F, P, K, T = _min_args(starts, coeffs, q)
+    _admit("ppoly_min_eval", rt, P, K, F, T)
+    return _min_eval(rt, starts, coeffs, q, B, F, P, K, T)
 
 
 def ppoly_first_crossing_cuda(starts: torch.Tensor, coeffs: torch.Tensor,

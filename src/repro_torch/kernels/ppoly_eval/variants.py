@@ -1,0 +1,149 @@
+"""The "vec" kernels' launch constants against each other, on the card.
+
+    PYTHONPATH=src python -m repro_torch.kernels.ppoly_eval.variants
+
+Builds copies of ``csrc/ppoly_eval.cu`` that differ from it in one constant
+each (16-byte loads per lane, warps per block), with the library's own
+flags, into ``build/repro_torch/``; then, at the analysis path's largest
+shapes (B = 10,000, T = 1024, P = 9, K = 3; F = 2 for the minimum), holds
+each variant bit for bit against the source as it stands and times both
+"vec" kernels of each, in turns (all variants, then all again in reverse
+order), by CUDA events around each launch with every launch queued before
+the card reaches it, back to back and with the L2 flushed (a 128 MB write)
+between launches.  Prints one JSON line per variant: its changes, the
+kernels' registers and spills, and the times.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ..build import build, build_dir, ptxas_usage, require_card
+from . import kernel
+
+#: name -> (text in the source, its replacement), applied in order
+VARIANTS: dict[str, list[tuple[str, str]]] = {
+    "source": [],
+    "loads4": [("constexpr int kVecLoads = 2;", "constexpr int kVecLoads = 4;")],
+    "loads8": [("constexpr int kVecLoads = 2;", "constexpr int kVecLoads = 8;")],
+    "warps8": [("constexpr int kVecWarps = 4;", "constexpr int kVecWarps = 8;")],
+}
+B, T, P, K, F = 10_000, 1024, 9, 3, 2
+
+
+def _library(name: str, edits) -> tuple[ctypes.CDLL, dict]:
+    text = kernel.SOURCES[0].read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"variant {name}: {old!r} is not in the source once")
+        text = text.replace(old, new)
+    src = build_dir() / "variants" / f"ppoly_eval_{name}.cu"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+    path = build(f"ppoly_eval_{name}", (src,), kernel.NVCC_FLAGS)
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ppoly_eval_vec_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.ppoly_min_eval_vec_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    use = ptxas_usage(path.with_suffix(".log").read_text())
+    mine = {k.split("vec_kernel")[0].rsplit("ppoly_", 1)[-1] + "vec": v
+            for k, v in use.items() if f"vec_kernelILi{P}ELi{K}E" in k}
+    return lib, mine
+
+
+def _inputs(dev):
+    rng = np.random.default_rng(16)
+    starts = np.sort(rng.uniform(0.0, 200.0, (B, F, P)), -1)
+    starts[..., 0] = 0.0
+    n_real = rng.integers(2, P + 1, (B, F))
+    starts[np.arange(P)[None, None] >= n_real[..., None]] = 1e30
+    coeffs = rng.uniform(-3.0, 3.0, (B, F, P, K))
+    q = np.broadcast_to(np.linspace(0.0, 300.0, T), (B, T))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)  # noqa: E731
+    return t(starts), t(coeffs), t(q)
+
+
+def _launchers(lib, starts, coeffs, q):
+    out = torch.empty((B, T), device=q.device)
+    vals = torch.empty((B, T), device=q.device)
+    arg = torch.empty((B, T), dtype=torch.int32, device=q.device)
+    s1, c1 = starts[:, 0].contiguous(), coeffs[:, 0].contiguous()
+
+    def ev():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ppoly_eval_vec_launch(s1.data_ptr(), c1.data_ptr(), q.data_ptr(),
+                                        out.data_ptr(), B, P, K, T, stream)
+        if err:
+            raise RuntimeError(f"ppoly_eval_vec_launch: cudaError {err}")
+
+    def mn():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ppoly_min_eval_vec_launch(
+            starts.data_ptr(), coeffs.data_ptr(), q.data_ptr(), vals.data_ptr(),
+            arg.data_ptr(), B, F, P, K, T, stream)
+        if err:
+            raise RuntimeError(f"ppoly_min_eval_vec_launch: cudaError {err}")
+
+    return ev, mn, (out, vals, arg)
+
+
+def queued_ms(fn, flush=None, iters: int = 20) -> float:
+    """Mean device time of one ``fn()`` by CUDA events around each launch,
+    with the card held busy first (``torch.cuda._sleep``) so that every
+    launch is queued before the card reaches it and no host time enters
+    the events.  With ``flush`` (a tensor of 128 MB), a write of it between
+    launches, outside the events, leaves the 50 MB L2 cold; without it the
+    launches run back to back."""
+    fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(iters)]
+    torch.cuda._sleep(50_000_000)            # tens of ms at the card's clock
+    for a, b in evs:
+        if flush is not None:
+            flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / iters
+
+
+def main() -> None:
+    require_card()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    with ThreadPoolExecutor(len(VARIANTS)) as ex:
+        libs = dict(zip(VARIANTS, ex.map(lambda kv: _library(*kv), VARIANTS.items())))
+    dev = torch.device("cuda")
+    args = _inputs(dev)
+    runs = {name: _launchers(lib, *args) for name, (lib, _u) in libs.items()}
+    for name, (ev, mn, outs) in runs.items():
+        ev()
+        mn()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, runs["source"][2]):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"variant {name} differs from the source")
+    flush = torch.empty(32 * 2**20, device=dev)
+    times: dict[str, dict[str, list[float]]] = {n: {} for n in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            ev, mn, _o = runs[name]
+            for key, fn, fl in (("eval_ms", ev, None), ("eval_flushed_ms", ev, flush),
+                                ("min_ms", mn, None), ("min_flushed_ms", mn, flush)):
+                times[name].setdefault(key, []).append(queued_ms(fn, fl))
+    for name in runs:
+        print(json.dumps({"variant": name, "changes": VARIANTS[name],
+                          "ptxas": libs[name][1], **times[name]}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,16 @@
 """The torch port's curve-query ops against the reference package's.
 
 The same numpy-seeded inputs go through ``repro.kernels.ppoly_eval`` (its
-plain jnp versions, ``use_pallas=False``) and ``repro_torch.kernels.ppoly_eval``
-(CPU tensors take the plain torch versions).  Tolerance: rtol/atol 1e-5 on
-values, as in ``tests/test_kernel_ppoly_eval.py``; argmin exactly equal.
+plain jnp versions, ``use_pallas=False``, and at the analysis path's shapes
+also its Pallas kernels in interpret mode) and
+``repro_torch.kernels.ppoly_eval`` (CPU tensors take the plain torch
+versions).  Tolerance: rtol/atol 1e-5 on values, as in
+``tests/test_kernel_ppoly_eval.py``; argmin exactly equal.
 
 The CUDA kernels themselves are held against the plain torch versions by
-the ``requires_cuda`` tests at the end, which skip without a card.
+the ``requires_cuda`` tests at the end and in
+``tests/test_torch_ppoly_eval_cuda.py`` (which imports no JAX, so that it
+runs on a machine with a card); both skip without a card.
 """
 
 import numpy as np
@@ -181,14 +185,99 @@ def test_cpu_tensors_never_launch_a_kernel():
     kernel.reset_launches()
     starts, coeffs = ops.pack_ppolys_np(_random_ppolys(np.random.default_rng(1), 3))
     ops.ppoly_eval(starts, coeffs, np.zeros((3, 4), np.float32))
-    assert kernel.launches == {"ppoly_eval": 0, "ppoly_min_eval": 0,
-                               "ppoly_first_crossing": 0}
+    assert kernel.launches == {
+        "ppoly_eval": 0, "ppoly_eval_vec": 0, "ppoly_eval_tile": 0,
+        "ppoly_min_eval": 0, "ppoly_min_eval_vec": 0, "ppoly_min_eval_tile": 0,
+        "ppoly_first_crossing": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     z = torch.zeros((2, 3))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernel.ppoly_eval_cuda(z, torch.zeros((2, 3, 2)), z)
+
+
+@pytest.mark.parametrize("launch,args", [
+    ("launch_eval", ((2, 3), (2, 3, 2), (2, 5))),
+    ("launch_min_eval", ((2, 2, 3), (2, 2, 3, 2), (2, 5))),
+])
+@pytest.mark.parametrize("rt", kernel.ROUTES)
+def test_route_launchers_refuse_cpu_tensors(monkeypatch, launch, args, rt):
+    """Each route's launcher refuses CPU tensors before it builds or loads
+    the library, and counts nothing."""
+    monkeypatch.setattr(kernel, "_lib", None)
+    before = dict(kernel.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        getattr(kernel, launch)(rt, *(torch.zeros(a) for a in args))
+    assert kernel._lib is None and kernel.launches == before
+
+
+# ------------------------------------------------------ routes by shape ----
+@pytest.mark.parametrize("P,K,F,want", [
+    (9, 3, 1, "vec"),      # sample_progress on the analysis path
+    (9, 3, 2, "vec"),      # data_ceiling of task3
+    (1, 2, 1, "vec"),      # data_ceiling of dl1 / dl2
+    (10, 3, 1, "vec"),
+    (16, 3, 4, "vec"),     # the largest shape the vec kernels take
+    (1, 1, 1, "vec"),
+    (17, 1, 1, "tile"),
+    (64, 3, 1, "tile"),
+    (9, 4, 1, "tile"),
+    (9, 3, 5, "tile"),
+    (40, 2, 6, "tile"),
+])
+def test_route_is_a_function_of_the_shape(P, K, F, want):
+    assert kernel.route(P, K, F) == want
+    if F == 1:
+        assert kernel.route(P, K) == want
+    assert want in kernel.ROUTES
+
+
+# --------------------------------- the analysis path's shapes, scaled in B ----
+def _main_path_case(rng, B, T=1024, P=9, K=3, F=2):
+    """As the Report's queries give them: P = 9 pieces of K = 3 coefficients
+    (quadratic progress under ramped allocations), F = 2 ceiling slots;
+    padding pieces, duplicate starts (jumps), an absent slot in every third
+    row, queries on one ``linspace`` past the last start."""
+    starts = np.sort(rng.uniform(0.0, 200.0, (B, F, P)), -1)
+    starts[..., 0] = 0.0
+    starts[::2, :, 3] = starts[::2, :, 2]           # duplicate starts
+    n_real = rng.integers(2, P + 1, (B, F))
+    starts[np.arange(P)[None, None] >= n_real[..., None]] = 1e30
+    starts[::3, 1] = 1e30                             # absent slot
+    coeffs = np.zeros((B, F, P, K))
+    coeffs[..., 0] = np.cumsum(rng.uniform(0.0, 50.0, (B, F, P)), -1)
+    coeffs[..., 1] = rng.uniform(0.0, 3.0, (B, F, P))
+    coeffs[..., 2] = np.where(rng.random((B, F, P)) < 0.5,
+                              rng.uniform(0.0, 0.05, (B, F, P)), 0.0)
+    q = np.broadcast_to(np.linspace(0.0, 300.0, T), (B, T))
+    return (starts.astype(np.float32), coeffs.astype(np.float32),
+            np.ascontiguousarray(q, np.float32))
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["jnp", "pallas_interpret"])
+def test_eval_matches_reference_at_main_path_shape(pallas):
+    starts, coeffs, q = _main_path_case(np.random.default_rng(16), B=16)
+    s, c = starts[:, 0], coeffs[:, 0]
+    got = ops.ppoly_eval(torch.from_numpy(s), torch.from_numpy(c),
+                         torch.from_numpy(q))
+    want = ref_ops.ppoly_eval(s, c, q, use_pallas=pallas,
+                              interpret=True if pallas else None)
+    assert got.shape == (16, 1024) and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["jnp", "pallas_interpret"])
+def test_min_eval_matches_reference_at_main_path_shape(pallas):
+    starts, coeffs, q = _main_path_case(np.random.default_rng(17), B=16)
+    v_t, a_t = ops.ppoly_min_eval(torch.from_numpy(starts),
+                                  torch.from_numpy(coeffs), torch.from_numpy(q))
+    v_r, a_r = ref_ops.ppoly_min_eval(starts, coeffs, q, use_pallas=pallas,
+                                      interpret=True if pallas else None)
+    assert v_t.shape == a_t.shape == (16, 1024) and a_t.dtype == torch.int32
+    np.testing.assert_allclose(_np(v_t), np.asarray(v_r), rtol=RTOL, atol=ATOL)
+    np.testing.assert_array_equal(_np(a_t), np.asarray(a_r))
+    assert (_np(a_t)[::3] == 0).all() and (_np(a_t) == 1).any()
 
 
 # ------------------------------------------------- CUDA kernels on a card ----
