@@ -15,8 +15,8 @@ kernels.  Every phase prints one JSON line; any failure raises and ends the
 run with a non-zero exit.  The last line is ``{"ok": true, "device": {...}}``.
 
 Phases: env, build, kernels (random ragged shapes, T = 1 to 4097 and a q
-that is not 16-byte aligned; evaluation and the minimum on both routes,
-"vec" held bitwise against "tile" wherever it takes the shape),
+that is not 16-byte aligned; each kernel on every route that takes the
+shape, each route held bitwise against "tile"),
 flash_kernels (random
 attention shapes, float32 and bf16, and one bf16 call at S = 32,768 held
 against the plain version 2,048 query rows at a time), wkv6_kernels
@@ -25,7 +25,11 @@ both routes: the chunked kernels and the serial kernel),
 sweep_fig7 (B = 600, the paper's Fig. 7 sweep), sweep_b10k_ramped
 (B = 10,000 with ramped link allocations), queries (T = 1024 curve queries
 on the B = 10,000 Report, each call's host time and its kernel's share;
-every evaluation and minimum on the "vec" route), lm_prefill (yi-9b,
+every evaluation and minimum on the "vec" route, every crossing on "row";
+each result equal bit for bit to the op on inputs packed by hand, whose
+steps are timed; the main path's results copied back again into pageable
+and into pinned memory, in turns; on fresh Reports the first and second
+call of each, and the steps the Report takes), lm_prefill (yi-9b,
 bf16, B = 2, S = 4096; every flash call on the tensor-core kernel),
 lm_serve (``repro_torch.launch.serve``
 with yi-9b, 8 requests; prefill against decode beside the bf16 batch-split
@@ -33,10 +37,10 @@ floor), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096; every wkv6
 call on the chunked route), lm_serve_rwkv (the launcher with rwkv6-1.6b, 8
 requests; every wkv6 call on the serial route), then the
 per-kernel line with launches on each path, errors and times at each
-path's shapes (for evaluation and the minimum also per route, with the L2
-flushed between launches, the "tile" route on the same inputs, and ptxas
-registers and spills).  The launch counts are set to 0 just before each
-path is driven and read just after it.
+path's shapes (also with the L2 flushed between launches, the "tile"
+route on the same inputs, and ptxas registers and spills; for the crossing
+the launch floor).  The launch counts are
+set to 0 just before each path is driven and read just after it.
 
 Imports nothing of JAX or of the reference package.  Exits with code 2 and
 prints no result when no CUDA device is present or when the port's sources
@@ -395,29 +399,46 @@ def misaligned(x):
     return out
 
 
+#: each kernel's uncounted launcher of one named route
+LAUNCH = {"ppoly_eval": "launch_eval", "ppoly_min_eval": "launch_min_eval",
+          "ppoly_first_crossing": "launch_crossing"}
+
+
+def routes_of(name: str, args) -> tuple[str, ...]:
+    """The routes that take the shape of ``args``: "tile" always; where
+    P <= 16, K <= 3 and F <= 4 also "vec", for the crossing "row" (at any
+    T, beyond the T its wrapper sends there too)."""
+    from repro_torch.kernels.ppoly_eval import kernel
+
+    starts, coeffs, _q = args
+    F = starts.shape[1] if name == "ppoly_min_eval" else 1
+    if kernel.route(starts.shape[-1], coeffs.shape[-1], F) == "tile":
+        return ("tile",)
+    return ("row", "tile") if name == "ppoly_first_crossing" else ("vec", "tile")
+
+
 def hold_routes(name: str, args, counts: dict) -> float:
-    """Every route that takes the shape, each against the plain version;
-    where both do, "vec" against "tile" bit for bit.  Returns the max abs
+    """Every route that takes the shape, each against the plain version and
+    each but "tile" against "tile" bit for bit.  Returns the max abs
     error."""
     import torch
     from repro_torch.kernels.ppoly_eval import kernel
 
-    launch = kernel.launch_eval if name == "ppoly_eval" else kernel.launch_min_eval
-    starts, coeffs, _q = args
-    P, K = starts.shape[-1], coeffs.shape[-1]
-    F = starts.shape[1] if name == "ppoly_min_eval" else 1
+    launch = getattr(kernel, LAUNCH[name])
     outs, worst = {}, 0.0
-    for rt in ("vec", "tile") if kernel.route(P, K, F) == "vec" else ("tile",):
+    for rt in routes_of(name, args):
         outs[rt] = launch(rt, *args)
         torch.cuda.synchronize()
         worst = max(worst, hold_against_plain(name, args, outs[rt]))
-        counts[rt] += 1
-    if len(outs) == 2:
-        pairs = (zip(outs["vec"], outs["tile"]) if name == "ppoly_min_eval"
-                 else [(outs["vec"], outs["tile"])])
+        counts[name][rt] = counts[name].get(rt, 0) + 1
+    for rt, out in outs.items():
+        if rt == "tile":
+            continue
+        pairs = (zip(out, outs["tile"]) if name == "ppoly_min_eval"
+                 else [(out, outs["tile"])])
         for a, b in pairs:
             check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
-                  f"{name} {tuple(args[2].shape)}: the vec route differs from "
+                  f"{name} {tuple(args[2].shape)}: the {rt} route differs from "
                   f"the tile route")
         counts["bitwise"] += 1
     return worst
@@ -425,9 +446,9 @@ def hold_routes(name: str, args, counts: dict) -> float:
 
 def phase_kernels():
     """:data:`KERNEL_CASES`: each kernel through its wrapper (the route
-    :func:`kernel.route` names) against the plain version; evaluation and
-    the minimum also on each route apart (:func:`hold_routes`), and once
-    more with a q that is not 16-byte aligned."""
+    :func:`kernel.route` names) against the plain version, then on each
+    route apart (:func:`hold_routes`), and once more with a q (or y) that
+    is not 16-byte aligned."""
     import numpy as np
     import torch
     from repro_torch.kernels.ppoly_eval import kernel
@@ -435,7 +456,7 @@ def phase_kernels():
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
     worst = {n: 0.0 for n in KERNELS}
-    counts = {"vec": 0, "tile": 0, "bitwise": 0, "misaligned": 0}
+    counts = {**{n: {} for n in KERNELS}, "bitwise": 0, "misaligned": 0}
     cases = 0
     for B, T, P, K, F in KERNEL_CASES:
         starts, coeffs, q, y = kernel_case(rng, B, T, P, K, F)
@@ -450,12 +471,11 @@ def phase_kernels():
             out = getattr(kernel, f"{name}_cuda")(*args)
             torch.cuda.synchronize()
             worst[name] = max(worst[name], hold_against_plain(name, args, out))
-            if name != "ppoly_first_crossing":
-                worst[name] = max(worst[name], hold_routes(name, args, counts))
-                if T > 1:
-                    shifted = (*args[:2], misaligned(args[2]))
-                    worst[name] = max(worst[name], hold_routes(name, shifted, counts))
-                    counts["misaligned"] += 1
+            worst[name] = max(worst[name], hold_routes(name, args, counts))
+            if T > 1:
+                shifted = (*args[:2], misaligned(args[2]))
+                worst[name] = max(worst[name], hold_routes(name, shifted, counts))
+                counts["misaligned"] += 1
             cases += 1
     emit("kernels", cases=cases, tol=TOL, max_abs_err=worst, route_calls=counts)
 
@@ -1124,29 +1144,50 @@ def phase_sweep_b10k(paper, scenarios):
     emit("sweep_b10k_ramped", B=rep.B, ramps=pack.ramps, prepare_s=prep_s,
          cold_s=cold, warm_s=warm, numpy_s=numpy_s,
          best=rep.top_k(1)[0][1:], iter_caps=plan._torch_engine.proven_caps_rows())
-    return rep
+    return rep, pack
+
+
+#: each curve query of the Report: its op and the tables it reads
+QUERY_OPS = {"sample_progress": ("ppoly_eval", "progress"),
+             "data_ceiling": ("ppoly_min_eval", "ceilings"),
+             "kernel_finish_times": ("ppoly_first_crossing", "progress")}
+
+
+def query_fn(rep, call: str, pn: str, ts):
+    """The Report's call as a user makes it."""
+    if call == "kernel_finish_times":
+        return lambda: rep.kernel_finish_times(pn)
+    return lambda: getattr(rep, call)(pn, ts)
+
+
+def same_result(a, b) -> bool:
+    """Equal bit for bit: the same arrays of the same dtypes and shapes."""
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+        for x, y in zip(a, b))
 
 
 def phase_queries(rep):
-    """The Report's curve queries at T = 1024 on every process: checked, and
-    each call's host wall time (ending in a synchronize; the broadcast of
-    ts, the copies to the card and back included).  Returns (shapes, host
-    seconds per call in call order)."""
+    """The Report's curve queries at T = 1024 on every process, each once:
+    checked, and each call's host wall time (ending in a synchronize).
+    Returns (ts, shapes, host seconds per call in call order, results)."""
     import numpy as np
 
     ts = np.linspace(0.0, float(np.max(rep.makespans)) * 1.05, T_QUERIES)
-    shapes, walls = {}, []
+    shapes, walls, results = {}, [], []
     for pn in rep.order:
-        wall, prog = host_s(lambda: rep.sample_progress(pn, ts))
-        walls.append(("sample_progress", pn, wall))
-        wall, (vals, arg) = host_s(lambda: rep.data_ceiling(pn, ts))
-        walls.append(("data_ceiling", pn, wall))
-        wall, fin = host_s(lambda: rep.kernel_finish_times(pn))
-        walls.append(("kernel_finish_times", pn, wall))
+        for call in QUERY_OPS:
+            wall, out = host_s(query_fn(rep, call, pn, ts))
+            walls.append((call, pn, wall))
+            results.append((call, pn, out))
+        prog, (vals, arg), fin = (out for _c, _p, out in results[-3:])
         check(prog.shape == (rep.B, T_QUERIES) and np.isfinite(prog).all(),
               f"sample_progress {pn}: shape {prog.shape} / non-finite")
         check(vals.shape == arg.shape == (rep.B, T_QUERIES),
               f"data_ceiling {pn}: shapes {vals.shape} {arg.shape}")
+        check(prog.dtype == vals.dtype == np.float32 and arg.dtype == np.int32
+              and fin.dtype == np.float64, f"{pn}: result dtypes")
         np.testing.assert_array_equal(np.isfinite(fin),
                                       np.isfinite(rep.finish[pn]))
         ok = np.isfinite(fin)
@@ -1154,7 +1195,165 @@ def phase_queries(rep):
                                    err_msg=f"kernel_finish_times {pn}")
         shapes[pn] = {"progress": list(prog.shape), "ceiling_slots":
                       len(rep.proc_results[pn].ceilings)}
-    return shapes, walls
+    return ts, shapes, walls, results
+
+
+def pack_by_hand(rep, kind: str, pn: str):
+    """The float32 tables of a curve query, packed here from the process's
+    piecewise functions (``kernel_args()``) and not by the Report: the
+    progress functions (B, P) / (B, P, K), or the data ceilings padded to
+    (B, F, P) / (B, F, P, K) with absent pieces at ``PAD_START``."""
+    import numpy as np
+    from repro_torch.kernels.ppoly_eval import PAD_START
+
+    r = rep.proc_results[pn]
+    if kind == "progress":
+        return r.progress.kernel_args()
+    packs = [c.kernel_args() for c in r.ceilings]
+    P = max(s.shape[1] for s, _c in packs)
+    K = max(c.shape[-1] for _s, c in packs)
+    starts = np.full((rep.B, len(packs), P), PAD_START, np.float32)
+    coeffs = np.zeros((rep.B, len(packs), P, K), np.float32)
+    for f, (s, c) in enumerate(packs):
+        starts[:, f, :s.shape[1]] = s
+        coeffs[:, f, :s.shape[1], :c.shape[-1]] = c
+    return starts, coeffs
+
+
+def explicit_call(rep, call: str, pn: str, ts):
+    """The call's op on inputs packed by hand on the host
+    (:func:`pack_by_hand`), as the Report sent them before it kept its
+    tables on the card: the tables packed, the levels broadcast to (B, T)
+    and made contiguous, each array copied to the card, the op, the result
+    copied back.  Returns (the result as the call returns it, each step's
+    host time in ms, ending in a synchronize)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ppoly_eval as ops
+
+    name, kind = QUERY_OPS[call]
+    split = {}
+
+    def step(key, fn):
+        s, out = host_s(fn)
+        split[key] = s * 1e3
+        return out
+
+    starts, coeffs = step("pack_ms", lambda: pack_by_hand(rep, kind, pn))
+    if call == "kernel_finish_times":
+        p_end = rep.proc_results[pn].p_end
+        levels = step("levels_ms", lambda: np.full((rep.B, 1), p_end, np.float32))
+    else:
+        levels = step("levels_ms", lambda: np.ascontiguousarray(
+            np.broadcast_to(np.asarray(ts, np.float32), (rep.B, len(ts)))))
+    dev = [step(f"h2d_{k}_ms", lambda a=a: torch.as_tensor(a, device=rep.plan.device))
+           for k, a in (("starts", starts), ("coeffs", coeffs), ("levels", levels))]
+    out = step("kernel_ms", lambda: getattr(ops, name)(*dev))
+    outs = out if isinstance(out, tuple) else (out,)
+    host = step("d2h_ms", lambda: tuple(o.cpu().numpy() for o in outs))
+    if call == "kernel_finish_times":
+        fin = host[0][:, 0]
+        return np.where(fin >= 1e29, np.inf, fin.astype(np.float64)), split
+    return (host if call == "data_ceiling" else host[0]), split
+
+
+def report_calls(plan, pack, ts) -> dict:
+    """On a Report of its own (a warm re-sweep of the pack), each call on
+    every process twice in a row: the first and the second call's host
+    wall time in ms (the tables reach the card at the first), and both
+    results equal bit for bit."""
+    rep = plan.sweep(pack, backend="torch")
+    out: dict[str, list] = {call: [] for call in QUERY_OPS}
+    for pn in rep.order:
+        for call in QUERY_OPS:
+            fn = query_fn(rep, call, pn, ts)
+            first, a = host_s(fn)
+            second, b = host_s(fn)
+            check(same_result(a, b), f"{call} {pn}: a second call differs")
+            out[call].append({"proc": pn, "first_ms": first * 1e3,
+                              "second_ms": second * 1e3})
+    return out
+
+
+def report_split(plan, pack, ts) -> dict:
+    """The steps of the Report's calls as it takes them, on a Report of its
+    own, each on the host clock (ms, ending in a synchronize): the lazy
+    ceilings' first access (numpy, once a Report), the tables' packing on
+    the host and their copy to the card (the first call's; then they stay
+    there), the levels sent as one row and broadcast on the card, each op,
+    and its copy back."""
+    import torch
+    from repro_torch.kernels import ppoly_eval as ops
+
+    rep = plan.sweep(pack, backend="torch")
+    out = {}
+    for pn in rep.order:
+        r = rep.proc_results[pn]
+        s = {"ceilings_first_access_ms": host_s(lambda: len(r.ceilings))[0] * 1e3}
+        for kind in ("progress", "ceilings"):
+            s[f"pack_{kind}_ms"] = host_s(lambda: rep._host_tables(kind, pn))[0] * 1e3
+            s[f"pack_and_copy_{kind}_ms"] = host_s(lambda: rep._tables(kind, pn))[0] * 1e3
+        s["levels_ms"] = host_s(lambda: rep._levels(ts).contiguous())[0] * 1e3
+        for call, (name, kind) in QUERY_OPS.items():
+            starts, coeffs = rep._tables(kind, pn)
+            levels = (torch.full((rep.B, 1), r.p_end, dtype=torch.float32,
+                                 device=starts.device)
+                      if call == "kernel_finish_times" else rep._levels(ts))
+            k_s, res = host_s(lambda: getattr(ops, name)(starts, coeffs, levels))
+            res = res if isinstance(res, tuple) else (res,)
+            s[f"{call}_op_ms"] = k_s * 1e3
+            s[f"{call}_copy_back_ms"] = host_s(
+                lambda: [o.cpu().numpy() for o in res])[0] * 1e3
+        out[pn] = s
+    return out
+
+
+def pinned_bytes() -> dict:
+    """The pinned host allocator's footprint: the bytes of the blocks it
+    owns (in use or cached; it never returns them to the system unless
+    asked), of those in use, and the blocks it has had to create."""
+    import torch
+
+    st = torch.cuda.host_memory_stats()
+    return {"owned_bytes": st.get("allocated_bytes.current"),
+            "in_use_bytes": st.get("active_bytes.current"),
+            "blocks_created": st.get("num_host_alloc")}
+
+
+def copy_back(calls) -> dict:
+    """Every result of the main path's queries (the device tensors its calls
+    returned, all still held, as the main path holds its numpy results)
+    copied back once more each way, in turns (every other call pinned
+    first), every copy kept to the end as the main path keeps its results:
+    into pageable memory (``.cpu().numpy()``, as the Report does) and by one
+    ``non_blocking`` copy each into new pinned memory, then one synchronize
+    (the alternative it measured against).  Host ms per call each way, and
+    the pinned allocator's footprint before and after."""
+    import torch
+
+    def pageable(outs):
+        return [o.cpu().numpy() for o in outs]
+
+    def pinned(outs):
+        host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True) for o in outs]
+        for h, o in zip(host, outs):
+            h.copy_(o, non_blocking=True)
+        torch.cuda.synchronize()
+        return [h.numpy() for h in host]
+
+    out = {"pinned_before": pinned_bytes(), "pageable_ms": {},
+           "pinned_ms": {}}
+    kept = []
+    for i, (name, _args, res) in enumerate(calls):
+        res = res if isinstance(res, tuple) else (res,)
+        ways = (("pageable", pageable), ("pinned", pinned))
+        for way, fn in ways[::-1] if i % 2 else ways:
+            s, host = host_s(lambda: fn(res))
+            kept.append(host)
+            out[f"{way}_ms"].setdefault(name, []).append(s * 1e3)
+    out["pinned_after_copies"] = pinned_bytes()
+    del kept
+    return out
 
 
 def query_host_times(walls, calls) -> dict:
@@ -1164,9 +1363,7 @@ def query_host_times(walls, calls) -> dict:
     from repro_torch.kernels.ppoly_eval import kernel
     from repro_torch.kernels.ppoly_eval.variants import queued_ms
 
-    kernel_of = {"sample_progress": "ppoly_eval", "data_ceiling": "ppoly_min_eval",
-                 "kernel_finish_times": "ppoly_first_crossing"}
-    check([kernel_of[c] for c, _p, _w in walls] == [n for n, _a, _o in calls],
+    check([QUERY_OPS[c][0] for c, _p, _w in walls] == [n for n, _a, _o in calls],
           "the Report's calls and the kernel launches do not pair up")
     out = {}
     for (call, pn, wall), (name, args, _o) in zip(walls, calls):
@@ -1177,25 +1374,29 @@ def query_host_times(walls, calls) -> dict:
     return out
 
 
-def ppoly_ptxas(P: int, K: int) -> dict:
-    """Registers and spill bytes of the two "tile" kernels and of the "vec"
-    instances for (P, K), from ``ptxas -v`` in the build log."""
+def ppoly_ptxas(name: str, P: int, K: int) -> dict:
+    """Registers and spill bytes of ``name``'s kernels at (P, K), from
+    ``ptxas -v`` in the build log: the "tile" kernel and the "vec" (for the
+    crossing the "row") instances."""
     from repro_torch.kernels.ppoly_eval import kernel
 
-    want = {f"ppoly_eval_vec_kernel<{P},{K}>", f"ppoly_min_eval_vec_kernel<{P},{K}>",
-            "ppoly_eval_kernel", "ppoly_min_eval_kernel"}
+    if name == "ppoly_first_crossing":
+        want = {"ppoly_first_crossing_kernel", f"{name}_row_kernel<{K}>"}
+    else:
+        want = {f"{name}_kernel", f"{name}_vec_kernel<{P},{K}>"}
     return {k: v for k, v in kernel_ptxas(kernel, "ppoly_").items() if k in want}
 
 
 def ppoly_row(name: str, args, launches: dict, err: float) -> dict:
-    """Times at the main path's largest call: the op (the "vec" route;
+    """Times at the main path's largest call: the op (the route it takes;
     queued back to back, the smaller of two runs around the plain version),
     the same with the L2 flushed between launches, the "tile" route on the
     same inputs, the plain version; achieved bytes/s and share of the
-    bound."""
+    bound.  For the crossing also the time of an empty kernel on the row
+    route's grid, the launch floor."""
     import torch
     from repro_torch.kernels.ppoly_eval import kernel, ref
-    from repro_torch.kernels.ppoly_eval.variants import queued_ms
+    from repro_torch.kernels.ppoly_eval.variants import empty_launcher, queued_ms
 
     cuda_fn = getattr(kernel, f"{name}_cuda")
     plain_fn = getattr(ref, f"{name}_ref")
@@ -1211,20 +1412,25 @@ def ppoly_row(name: str, args, launches: dict, err: float) -> dict:
                 "library_note": "no single PyTorch call evaluates a piecewise "
                 "polynomial", "tb_s": nbytes / best / 1e9,
                 "share_of_bound": b_ms / best})
-    if name in ("ppoly_eval", "ppoly_min_eval"):
-        starts, coeffs, _q = args
-        launch = kernel.launch_eval if name == "ppoly_eval" else kernel.launch_min_eval
-        flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
-        flushed = queued_ms(lambda: cuda_fn(*args), flush=flush)
-        tile_ms = queued_ms(lambda: launch("tile", *args))
-        tile_flushed = queued_ms(lambda: launch("tile", *args), flush=flush)
-        del flush
-        row.update({"launches_vec": launches[f"{name}_vec"],
-                    "launches_tile": launches[f"{name}_tile"],
-                    "flushed_ms": flushed, "flushed_tb_s": nbytes / flushed / 1e9,
-                    "flushed_share_of_bound": b_ms / flushed,
-                    "tile_ms": tile_ms, "tile_flushed_ms": tile_flushed,
-                    "ptxas": ppoly_ptxas(starts.shape[-1], coeffs.shape[-1])})
+    starts, coeffs, _q = args
+    launch = getattr(kernel, LAUNCH[name])
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device="cuda")
+    flushed = queued_ms(lambda: cuda_fn(*args), flush=flush)
+    tile_ms = queued_ms(lambda: launch("tile", *args))
+    tile_flushed = queued_ms(lambda: launch("tile", *args), flush=flush)
+    row.update({f"launches_{rt}": launches[f"{name}_{rt}"]
+                for rt in routes_of(name, args)})
+    row.update({"flushed_ms": flushed, "flushed_tb_s": nbytes / flushed / 1e9,
+                "flushed_share_of_bound": b_ms / flushed,
+                "tile_ms": tile_ms, "tile_flushed_ms": tile_flushed,
+                "ptxas": ppoly_ptxas(name, starts.shape[-1], coeffs.shape[-1])})
+    if name == "ppoly_first_crossing":
+        blocks = -(-starts.shape[0] // 8)   # the row route: 8 rows of 128 threads
+        empty = empty_launcher(blocks, 128)
+        row["launch_floor"] = {"blocks": blocks, "threads": 128,
+                               "ms": queued_ms(empty),
+                               "flushed_ms": queued_ms(empty, flush=flush)}
+    del flush
     row["shape"] = {"starts": list(args[0].shape), "coeffs": list(args[1].shape),
                     "q": list(args[2].shape)}
     return row
@@ -1265,22 +1471,34 @@ def main() -> int:
     with Recorder(kernel, KERNELS) as rec:
         reset_launches()
         phase_sweep_fig7(paper)
-        rep = phase_sweep_b10k(paper, scenarios)
-        shapes, walls = phase_queries(rep)
+        rep, pack = phase_sweep_b10k(paper, scenarios)
+        ts, shapes, walls, results = phase_queries(rep)
         torch.cuda.synchronize()
         launches = read_launches()
     errs = {n: 0.0 for n in KERNELS}
     for name, args, out in rec.calls:
         errs[name] = max(errs[name], hold_against_plain(name, args, out))
-    host = query_host_times(walls, rec.calls)
-    emit("queries", T=T_QUERIES, B=rep.B, calls=len(rec.calls),
-         launches=launches, max_abs_err=errs, shapes=shapes, host=host)
     for name in KERNELS:
         check(launches[name] > 0, f"{name} never launched on the main path")
-    for name in ("ppoly_eval", "ppoly_min_eval"):
-        check(launches[name] == launches[f"{name}_vec"] == len(rep.order),
-              f"{launches[name]} {name} calls, {launches[f'{name}_vec']} on the "
-              f"vec route, {len(rep.order)} processes")
+    for name, rt in (("ppoly_eval", "vec"), ("ppoly_min_eval", "vec"),
+                     ("ppoly_first_crossing", "row")):
+        check(launches[name] == launches[f"{name}_{rt}"] == len(rep.order),
+              f"{launches[name]} {name} calls, {launches[f'{name}_{rt}']} on the "
+              f"{rt} route, {len(rep.order)} processes")
+    host = query_host_times(walls, rec.calls)
+    copies = copy_back(rec.calls)
+    explicit = {}
+    for call, pn, got in results:
+        want, split = explicit_call(rep, call, pn, ts)
+        check(same_result(got, want),
+              f"{call} {pn}: differs from the op on explicitly packed inputs")
+        explicit.setdefault(call, []).append({"proc": pn, **split})
+    del results
+    emit("queries", T=T_QUERIES, B=rep.B, calls=len(rec.calls),
+         launches=launches, max_abs_err=errs, shapes=shapes, host=host,
+         copy_back=copies, explicit=explicit, bitwise_vs_explicit=True,
+         first_second=report_calls(rep.plan, pack, ts),
+         split=report_split(rep.plan, pack, ts))
 
     # ---- times at the main path's shapes (the largest call per kernel) ----
     rows = []
@@ -1289,7 +1507,7 @@ def main() -> int:
                    key=lambda a: sum(x.numel() for x in a))
         rows.append(ppoly_row(name, args, launches, errs[name]))
     analysis_peak = torch.cuda.max_memory_allocated()
-    del rec, rep, args
+    del rec, rep, pack, args
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -15,6 +15,14 @@ kernels on the plan's device (:meth:`Report.sample_progress`,
 :meth:`Report.data_ceiling`, :meth:`Report.kernel_finish_times`), and record
 the backend every scenario actually ran on (``backends`` — ``"torch"`` /
 ``"batched"`` fast paths vs ``"loop"`` scalar fallback).
+
+A curve query moves little besides its result: the piece tables of a
+process go to the device once per Report and stay there (a Report is not
+changed after it is built; :meth:`Report.subset` and
+:func:`concat_reports` build new ones, without the tables), the query
+points go as one ``(T,)`` row that the device broadcasts to every scenario,
+and each result comes back by one copy to the host.  The values
+are those of the same ops on the same float32 inputs packed on the host.
 """
 
 from __future__ import annotations
@@ -63,11 +71,6 @@ class FinishTimes(dict[str, np.ndarray]):
         return float(arr[0]) if self.scalar else arr
 
 
-def _to_query(a: np.ndarray, device: Any) -> torch.Tensor:
-    """A float32 query tensor on ``device`` (one host-to-device copy)."""
-    return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
-
-
 @dataclass
 class Report:
     """Unified analysis of one scenario (scalar) or B scenarios (sweep)."""
@@ -95,6 +98,9 @@ class Report:
                                         compare=False)
     _drill_cache: dict[int, dict[str, ProgressResult]] = field(
         default_factory=dict, repr=False, compare=False)
+    #: (kind, process) -> the curve queries' (starts, coeffs) on the device
+    _tables_cache: dict[tuple[str, str], tuple[torch.Tensor, torch.Tensor]] = \
+        field(default_factory=dict, repr=False, compare=False)
 
     # -- shape / mode -------------------------------------------------------
     @property
@@ -309,30 +315,16 @@ class Report:
             raise ValueError("curve queries need the originating plan")
         return self.plan.device
 
-    def sample_progress(self, proc: str, ts: np.ndarray) -> np.ndarray:
-        """``P(t)`` for every scenario at ``ts``: (B, T) float32, evaluated by
-        the batched ``ppoly_eval`` kernel."""
-        from repro_torch.kernels.ppoly_eval import ppoly_eval
+    def _host_tables(self, kind: str, proc: str) -> tuple[np.ndarray, np.ndarray]:
+        """The float32 ``(starts, coeffs)`` of a curve query, packed on the
+        host: ``kind="progress"`` gives the (B, P) / (B, P, K) progress
+        functions; ``kind="ceilings"`` the data ceilings padded to
+        (B, F, P) / (B, F, P, K), an absent piece at ``PAD_START``."""
+        from repro_torch.kernels.ppoly_eval import PAD_START
 
-        dev = self._device()
-        starts, coeffs = self._proc(proc).progress.kernel_args()
-        q = np.broadcast_to(np.asarray(ts, np.float32), (self.B, len(ts)))
-        out = ppoly_eval(_to_query(starts, dev), _to_query(coeffs, dev),
-                         _to_query(q, dev))
-        return out.cpu().numpy()
-
-    def data_ceiling(self, proc: str,
-                     ts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """``P_D(t) = min_k R_Dk(I_Dk(t))`` with argmin attribution for every
-        scenario at ``ts`` — one ``ppoly_min_eval`` kernel call.
-
-        Returns ``(vals (B,T) float32, argmin (B,T) int32)`` where the argmin
-        indexes the process's data deps in declaration order.
-        """
-        from repro_torch.kernels.ppoly_eval import PAD_START, ppoly_min_eval
-
-        dev = self._device()
         r = self._proc(proc)
+        if kind == "progress":
+            return r.progress.kernel_args()
         packs = [c.kernel_args() for c in r.ceilings]
         P = max(s.shape[1] for s, _ in packs)
         F = len(packs)
@@ -342,9 +334,45 @@ class Report:
         for f, (s, c) in enumerate(packs):
             starts[:, f, :s.shape[1]] = s
             coeffs[:, f, :s.shape[1], :c.shape[-1]] = c
-        q = np.broadcast_to(np.asarray(ts, np.float32), (self.B, len(ts)))
-        vals, arg = ppoly_min_eval(_to_query(starts, dev),
-                                   _to_query(coeffs, dev), _to_query(q, dev))
+        return starts, coeffs
+
+    def _tables(self, kind: str, proc: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`_host_tables` on the plan's device, copied there at the
+        first call and kept for the Report's lifetime."""
+        key = (kind, proc)
+        if key not in self._tables_cache:
+            dev = self._device()
+            self._tables_cache[key] = tuple(
+                torch.as_tensor(a, device=dev)
+                for a in self._host_tables(kind, proc))
+        return self._tables_cache[key]
+
+    def _levels(self, ts: np.ndarray) -> torch.Tensor:
+        """The query points ``ts`` as float32, sent to the device as one
+        (T,) row and broadcast there to a (B, T) view."""
+        row = torch.as_tensor(np.asarray(ts, np.float32), device=self._device())
+        return row.expand(self.B, len(ts))
+
+    def sample_progress(self, proc: str, ts: np.ndarray) -> np.ndarray:
+        """``P(t)`` for every scenario at ``ts``: (B, T) float32, evaluated by
+        the batched ``ppoly_eval`` kernel."""
+        from repro_torch.kernels.ppoly_eval import ppoly_eval
+
+        starts, coeffs = self._tables("progress", proc)
+        return ppoly_eval(starts, coeffs, self._levels(ts)).cpu().numpy()
+
+    def data_ceiling(self, proc: str,
+                     ts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """``P_D(t) = min_k R_Dk(I_Dk(t))`` with argmin attribution for every
+        scenario at ``ts`` — one ``ppoly_min_eval`` kernel call.
+
+        Returns ``(vals (B,T) float32, argmin (B,T) int32)`` where the argmin
+        indexes the process's data deps in declaration order.
+        """
+        from repro_torch.kernels.ppoly_eval import ppoly_min_eval
+
+        starts, coeffs = self._tables("ceilings", proc)
+        vals, arg = ppoly_min_eval(starts, coeffs, self._levels(ts))
         return vals.cpu().numpy(), arg.cpu().numpy()
 
     def kernel_finish_times(self, proc: str) -> np.ndarray:
@@ -352,13 +380,10 @@ class Report:
         each scenario's progress function with ``p_end`` (float32)."""
         from repro_torch.kernels.ppoly_eval import ppoly_first_crossing
 
-        dev = self._device()
-        r = self._proc(proc)
-        starts, coeffs = r.progress.kernel_args()
-        y = np.full((self.B, 1), r.p_end, np.float32)
-        out = ppoly_first_crossing(_to_query(starts, dev),
-                                   _to_query(coeffs, dev),
-                                   _to_query(y, dev)).cpu().numpy()[:, 0]
+        starts, coeffs = self._tables("progress", proc)
+        y = torch.full((self.B, 1), self._proc(proc).p_end, dtype=torch.float32,
+                       device=starts.device)
+        out = ppoly_first_crossing(starts, coeffs, y).cpu().numpy()[:, 0]
         return np.where(out >= 1e29, np.inf, out.astype(np.float64))
 
 

@@ -7,9 +7,9 @@
 //   ppoly_eval_launch              ppoly_eval_pallas (_ppoly_kernel/_eval_one)
 //   ppoly_min_eval_vec_launch    replace ppoly_min_eval_pallas
 //   ppoly_min_eval_launch          (_ppoly_min_kernel)
-//   ppoly_first_crossing_launch  replaces ppoly_first_crossing_pallas
-//                                (_first_crossing_kernel with
-//                                ref.first_crossing_candidates)
+//   ppoly_first_crossing_row_launch  replace ppoly_first_crossing_pallas
+//   ppoly_first_crossing_launch        (_first_crossing_kernel with
+//                                      ref.first_crossing_candidates)
 //
 // What bounds them: all are memory-bound on this card.  A query reads one
 // float32 (q or y) and writes one or two (value, argmin); the piece tables
@@ -47,15 +47,38 @@
 // * "tile" (the rest: P up to 64, F up to 6 in the checks): the first
 //   design.  One thread per (b, t) query, blocks of 4 rows x 128 queries
 //   that stage their rows' piece tables in shared memory behind a block
-//   barrier, then load q.  The crossing kernel keeps this layout.
+//   barrier, then load q.
 //
-// Both routes select the piece by counting `start <= t` over all P pieces,
-// exactly as the reference does, so duplicate starts (jumps) resolve to the
-// same piece; then run Horner on that one piece; the minimum skips absent
-// slots (first start >= 5e29) and keeps the lowest slot on ties (strict <).
-// The two routes therefore give the same bits.  The TPU kernel's one-hot
-// masked Horner and its 8 x 128 blocks are not carried over: they exist for
-// the TPU's vector lanes.
+// The two routes of the evaluation and the minimum select the piece by
+// counting `start <= t` over all P pieces, exactly as the reference does,
+// so duplicate starts (jumps) resolve to the same piece; then run Horner on
+// that one piece; the minimum skips absent slots (first start >= 5e29) and
+// keeps the lowest slot on ties (strict <).  The two routes therefore give
+// the same bits.  The TPU kernel's one-hot masked Horner and its 8 x 128
+// blocks are not carried over: they exist for the TPU's vector lanes.
+//
+// The first crossing has two routes, chosen by shape alone (P, K, T):
+//
+// * "row" (P <= 16, K <= 3, few levels a row; the analysis path asks for one
+//   level a row, T = 1).  There the work is a few hundred bytes a row and
+//   the time is one launch and one DRAM round trip, so the design keeps
+//   every thread busy and puts nothing in series with the loads: one thread
+//   per (row, piece), 16 lanes a row, two rows a warp, blocks of 8 rows.
+//   Each thread issues its independent loads first (its start, its K
+//   coefficients, one level of its row), takes the next start from its
+//   neighbour by a shuffle, computes its piece's candidate, and the 16 lanes
+//   take their minimum by xor shuffles; one lane stores.  No shared memory,
+//   no barrier.  More levels a row loop in chunks of 16, one level a lane,
+//   each broadcast from its lane by a shuffle.
+// * "tile" (the rest: P > 16, or more than 16 levels a row, one pass of the
+//   row route; its serial loop over the levels loses to this one from 32
+//   levels on): the first design, one thread per (b, t) level, P up to any
+//   size the shared memory takes.  It is the oracle of the row route.
+//
+// Both fold the same candidates with fminf, seeded with kBig; the
+// candidates are never NaN (a NaN start is a padding piece, and every other
+// NaN fails its comparison and yields kBig), so the order of the fold does
+// not change the result and the two routes give the same bits.
 //
 // Arithmetic: built without fast math and with -fmad=false, so every
 // multiply and add rounds as in the plain PyTorch version, division and sqrt
@@ -453,6 +476,58 @@ ppoly_min_eval_vec_kernel(const float* __restrict__ starts,
   }
 }
 
+// ------------------------------------------- the first crossing, "row" ----
+constexpr int kRowLanes = 16;             // lanes a row: one per piece, P <= 16
+constexpr int kRowThreads = 128;          // threads a block: 8 rows
+constexpr unsigned kFullMask = 0xffffffffu;
+
+template <int K>
+__global__ void __launch_bounds__(kRowThreads)
+ppoly_first_crossing_row_kernel(const float* __restrict__ starts,
+                                const float* __restrict__ coeffs,
+                                const float* __restrict__ y,
+                                float* __restrict__ out, int B, int P, int T) {
+  const long long b =
+      ((long long)blockIdx.x * kRowThreads + threadIdx.x) / kRowLanes;
+  const int p = threadIdx.x % kRowLanes;    // this lane's piece, and level
+  const bool row = b < B;
+  const bool mine = row && p < P;
+  // every load first, none depending on another
+  float s = kPadStart, c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+  if (mine) {
+    const long long i = b * P + p;
+    s = __ldg(starts + i);
+    c0 = __ldg(coeffs + i * K);
+    if (K > 1) c1 = __ldg(coeffs + i * K + 1);
+    if (K > 2) c2 = __ldg(coeffs + i * K + 2);
+  }
+  const float* yr = y + (row ? b : 0) * T;
+  float yl = (row && p < T) ? __ldg(yr + p) : 0.0f;
+  const float next = __shfl_down_sync(kFullMask, s, 1, kRowLanes);
+  const float plen = ((p + 1 < P) ? next : kPadStart) - s;
+  const bool real = mine && (s < kPadHalf);  // else a padding piece or none
+  // the rows of a warp share T, so every loop below is the same for all
+  // of its lanes, as the shuffles ask
+  for (int t0 = 0; t0 < T; t0 += kRowLanes) {
+    if (t0 > 0) yl = (row && t0 + p < T) ? __ldg(yr + t0 + p) : 0.0f;
+    const int n = min(kRowLanes, T - t0);
+    float res = 0.0f;
+    for (int j = 0; j < n; ++j) {
+      const float yv = __shfl_sync(kFullMask, yl, j, kRowLanes);
+      const float tol = 1e-6f * fmaxf(1.0f, fabsf(yv));
+      float v = real ? fminf(kBig, crossing_candidate(s, c0, c1, c2, plen, yv,
+                                                      tol))
+                     : kBig;
+#pragma unroll
+      for (int o = kRowLanes / 2; o > 0; o >>= 1) {
+        v = fminf(v, __shfl_xor_sync(kFullMask, v, o, kRowLanes));
+      }
+      if (p == j) res = v;
+    }
+    if (row && t0 + p < T) out[b * T + t0 + p] = res;
+  }
+}
+
 // Warps per row: the aligned body of any row holds at most T / 4 float4s.
 int vec_spans(int T) {
   const int n4 = T / 4;
@@ -515,6 +590,19 @@ cudaError_t min_eval_vec_p(int p, const float* starts, const float* coeffs,
                   : min_eval_vec_p<K, P + 1>(p, starts, coeffs, q, vals, arg,
                                              B, F, T, stream);
   }
+}
+
+template <int K>
+cudaError_t crossing_row(const float* starts, const float* coeffs,
+                         const float* y, float* out, int B, int P, int T,
+                         cudaStream_t stream) {
+  constexpr int rows = kRowThreads / kRowLanes;
+  const long long blocks = ((long long)B + rows - 1) / rows;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  ppoly_first_crossing_row_kernel<K><<<(unsigned)blocks, kRowThreads, 0,
+                                       stream>>>(starts, coeffs, y, out, B, P,
+                                                 T);
+  return cudaGetLastError();
 }
 
 // Rows per block so that the staged tables fit the default shared memory;
@@ -595,6 +683,20 @@ int ppoly_min_eval_vec_launch(const float* starts, const float* coeffs,
     case 1: return (int)min_eval_vec_p<1>(P, starts, coeffs, q, vals, arg, B, F, T, st);
     case 2: return (int)min_eval_vec_p<2>(P, starts, coeffs, q, vals, arg, B, F, T, st);
     case 3: return (int)min_eval_vec_p<3>(P, starts, coeffs, q, vals, arg, B, F, T, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The "row" route of the first crossing: P <= 16, K <= 3.
+int ppoly_first_crossing_row_launch(const float* starts, const float* coeffs,
+                                    const float* y, float* out, int B, int P,
+                                    int K, int T, void* stream) {
+  if (P < 1 || P > kRowLanes) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (K) {
+    case 1: return (int)crossing_row<1>(starts, coeffs, y, out, B, P, T, st);
+    case 2: return (int)crossing_row<2>(starts, coeffs, y, out, B, P, T, st);
+    case 3: return (int)crossing_row<3>(starts, coeffs, y, out, B, P, T, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

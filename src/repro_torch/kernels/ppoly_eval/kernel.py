@@ -13,10 +13,18 @@ Evaluation and the minimum each have two routes, and :func:`route` picks one
 by shape alone: ``"vec"`` (P <= 16, K <= 3, F <= 4: every call of the
 analysis path), one warp per row and span of 256 queries with 16-byte loads
 and stores; ``"tile"`` (the rest), the first design, one thread per query.
-Both give the same bits.  :func:`ppoly_eval_cuda` and
-:func:`ppoly_min_eval_cuda` launch the route :func:`route` names and add one
-to ``launches[name]`` and one to ``launches[f"{name}_{route}"]`` per call;
-:func:`launch_eval` and :func:`launch_min_eval` run a route named by the
+The first crossing has two, and :func:`crossing_route` picks one by
+(P, K, T): ``"row"`` for P <= 16, K <= 3 and T <= :data:`ROW_MAX_T` levels a
+row (the analysis path's T = 1), one thread per (row, piece) and a shuffle
+reduction over the row's 16 lanes; ``"tile"`` for the rest, where it
+measured faster than the row route from T = 32 (``python -m
+repro_torch.kernels.ppoly_eval.variants``).  All routes of a kernel give the
+same bits.
+:func:`ppoly_eval_cuda`, :func:`ppoly_min_eval_cuda` and
+:func:`ppoly_first_crossing_cuda` launch the route that :func:`route` or
+:func:`crossing_route` names and add one to ``launches[name]`` and one to
+``launches[f"{name}_{route}"]`` per call; :func:`launch_eval`,
+:func:`launch_min_eval` and :func:`launch_crossing` run a route named by the
 caller and count nothing, so that a check can hold each route against the
 plain version and against the other.
 
@@ -37,9 +45,10 @@ import torch
 
 from ..build import build, build_dir, require_card
 
-__all__ = ["NVCC_FLAGS", "ROUTES", "SOURCES", "VEC_MAX_F", "VEC_MAX_K",
-           "VEC_MAX_P", "build_dir", "launch_eval", "launch_min_eval",
-           "launches", "library", "ppoly_eval_cuda", "ppoly_first_crossing_cuda",
+__all__ = ["CROSSING_ROUTES", "NVCC_FLAGS", "ROUTES", "ROW_MAX_T", "SOURCES",
+           "VEC_MAX_F", "VEC_MAX_K", "VEC_MAX_P", "build_dir", "crossing_route",
+           "launch_crossing", "launch_eval", "launch_min_eval", "launches",
+           "library", "ppoly_eval_cuda", "ppoly_first_crossing_cuda",
            "ppoly_min_eval_cuda", "reset_launches", "route"]
 
 _PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
@@ -51,15 +60,22 @@ SOURCES = (_PKG / "csrc" / "ppoly_eval.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 ROUTES = ("vec", "tile")
-#: the shapes the "vec" kernels are instantiated for
+CROSSING_ROUTES = ("row", "tile")
+#: the shapes the "vec" kernels are instantiated for (and the "row" kernel
+#: takes: one lane per piece, 16 lanes a row)
 VEC_MAX_P, VEC_MAX_K, VEC_MAX_F = 16, 3, 4
+#: the first crossing's "row" route takes T <= ROW_MAX_T levels a row, one
+#: level a lane in a single pass; .variants on an H100 has it faster than
+#: "tile" through T = 24 and slower from T = 32
+ROW_MAX_T = 16
 
-#: kernel launches, counted where each kernel is launched: per kernel, and
-#: per route for the two kernels that have two
+#: kernel launches, counted where each kernel is launched: per kernel and
+#: per route
 launches: dict[str, int] = {
     "ppoly_eval": 0, "ppoly_eval_vec": 0, "ppoly_eval_tile": 0,
     "ppoly_min_eval": 0, "ppoly_min_eval_vec": 0, "ppoly_min_eval_tile": 0,
-    "ppoly_first_crossing": 0}
+    "ppoly_first_crossing": 0, "ppoly_first_crossing_row": 0,
+    "ppoly_first_crossing_tile": 0}
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -72,11 +88,19 @@ def reset_launches() -> None:
 
 
 def route(P: int, K: int, F: int = 1) -> str:
-    """The route of a call with P pieces of K coefficients (F functions for
-    the minimum): ``"vec"`` when P <= 16, K <= 3 and F <= 4, else
-    ``"tile"``."""
+    """The route of an evaluation or minimum with P pieces of K coefficients
+    (F functions for the minimum): ``"vec"`` when P <= 16, K <= 3 and
+    F <= 4, else ``"tile"``."""
     fits = P <= VEC_MAX_P and K <= VEC_MAX_K and F <= VEC_MAX_F
     return "vec" if fits else "tile"
+
+
+def crossing_route(P: int, K: int, T: int) -> str:
+    """The route of a first crossing with P pieces of K coefficients and T
+    levels a row: ``"row"`` when P <= 16, K <= 3 and T <= :data:`ROW_MAX_T`,
+    else ``"tile"``."""
+    fits = P <= VEC_MAX_P and K <= VEC_MAX_K and T <= ROW_MAX_T
+    return "row" if fits else "tile"
 
 
 def library() -> ctypes.CDLL:
@@ -91,11 +115,13 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = [p, p, p, p, i, i, i, i, p]
             for fn in (lib.ppoly_min_eval_launch, lib.ppoly_min_eval_vec_launch):
                 fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-            lib.ppoly_first_crossing_launch.argtypes = [p, p, p, p,
-                                                        i, i, i, i, p]
+            crossing = (lib.ppoly_first_crossing_row_launch,
+                        lib.ppoly_first_crossing_launch)
+            for fn in crossing:
+                fn.argtypes = [p, p, p, p, i, i, i, i, p]
             for fn in (lib.ppoly_eval_launch, lib.ppoly_eval_vec_launch,
                        lib.ppoly_min_eval_launch, lib.ppoly_min_eval_vec_launch,
-                       lib.ppoly_first_crossing_launch):
+                       *crossing):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -167,10 +193,11 @@ def _min_args(starts, coeffs, q) -> tuple[int, int, int, int, int]:
 
 
 def _admit(name: str, rt: str, P: int, K: int, F: int, T: int) -> None:
-    if rt not in ROUTES:
-        raise ValueError(f"{name}: route {rt!r}, expected one of {ROUTES}")
-    if rt == "vec" and route(P, K, F) != "vec":
-        raise ValueError(f"{name}: the vec route takes P <= {VEC_MAX_P}, "
+    routes = CROSSING_ROUTES if name == "ppoly_first_crossing" else ROUTES
+    if rt not in routes:
+        raise ValueError(f"{name}: route {rt!r}, expected one of {routes}")
+    if rt != "tile" and route(P, K, F) == "tile":
+        raise ValueError(f"{name}: the {rt} route takes P <= {VEC_MAX_P}, "
                          f"K <= {VEC_MAX_K}, F <= {VEC_MAX_F}; got P={P}, "
                          f"K={K}, F={F}")
     if rt == "tile" and T > _MAX_T:
@@ -247,9 +274,7 @@ def launch_min_eval(rt: str, starts: torch.Tensor, coeffs: torch.Tensor,
     return _min_eval(rt, starts, coeffs, q, B, F, P, K, T)
 
 
-def ppoly_first_crossing_cuda(starts: torch.Tensor, coeffs: torch.Tensor,
-                              y: torch.Tensor) -> torch.Tensor:
-    """starts (B, P) · coeffs (B, P, K <= 3) · y (B, T) -> (B, T) float32."""
+def _crossing_args(starts, coeffs, y) -> tuple[int, int, int, int]:
     if starts.dim() != 2 or coeffs.dim() != 3 or y.dim() != 2:
         raise ValueError("ppoly_first_crossing: expected starts (B,P), "
                          "coeffs (B,P,K), y (B,T)")
@@ -260,14 +285,42 @@ def ppoly_first_crossing_cuda(starts: torch.Tensor, coeffs: torch.Tensor,
     _check("starts", starts, (B, P), dev)
     _check("coeffs", coeffs, (B, P, K), dev)
     _check("y", y, (B, T), dev)
-    if P < 1 or not 1 <= K <= 3 or T > _MAX_T:
-        raise ValueError(
-            f"ppoly_first_crossing: unsupported P={P}, K={K}, T={T}")
-    out = torch.empty((B, T), dtype=torch.float32, device=dev)
+    if P < 1 or not 1 <= K <= 3:
+        raise ValueError(f"ppoly_first_crossing: unsupported P={P}, K={K}")
+    return B, P, K, T
+
+
+def _crossing(rt: str, starts, coeffs, y, B: int, P: int, K: int,
+              T: int) -> torch.Tensor:
+    out = torch.empty((B, T), dtype=torch.float32, device=y.device)
     if B and T:
         lib = library()
-        _raise_on(lib.ppoly_first_crossing_launch(
-            starts.data_ptr(), coeffs.data_ptr(), y.data_ptr(),
-            out.data_ptr(), B, P, K, T, _stream(dev)), "ppoly_first_crossing")
-        launches["ppoly_first_crossing"] += 1
+        fn = (lib.ppoly_first_crossing_row_launch if rt == "row"
+              else lib.ppoly_first_crossing_launch)
+        _raise_on(fn(starts.data_ptr(), coeffs.data_ptr(), y.data_ptr(),
+                     out.data_ptr(), B, P, K, T, _stream(y.device)),
+                  f"ppoly_first_crossing ({rt})")
     return out
+
+
+def ppoly_first_crossing_cuda(starts: torch.Tensor, coeffs: torch.Tensor,
+                              y: torch.Tensor) -> torch.Tensor:
+    """starts (B, P) · coeffs (B, P, K <= 3) · y (B, T) -> (B, T) float32, by
+    the route :func:`crossing_route` names."""
+    B, P, K, T = _crossing_args(starts, coeffs, y)
+    rt = crossing_route(P, K, T)
+    _admit("ppoly_first_crossing", rt, P, K, 1, T)
+    out = _crossing(rt, starts, coeffs, y, B, P, K, T)
+    if B and T:
+        launches["ppoly_first_crossing"] += 1
+        launches[f"ppoly_first_crossing_{rt}"] += 1
+    return out
+
+
+def launch_crossing(rt: str, starts: torch.Tensor, coeffs: torch.Tensor,
+                    y: torch.Tensor) -> torch.Tensor:
+    """:func:`ppoly_first_crossing_cuda` on the route ``rt``; counts
+    nothing."""
+    B, P, K, T = _crossing_args(starts, coeffs, y)
+    _admit("ppoly_first_crossing", rt, P, K, 1, T)
+    return _crossing(rt, starts, coeffs, y, B, P, K, T)

@@ -103,6 +103,107 @@ def test_kernel_finish_times_match_engine(both):
                                    rep_t.finish[pn], rtol=1e-4)
 
 
+QUERIES = ("sample_progress", "data_ceiling", "kernel_finish_times")
+
+
+def _query(rep, call, pn, ts, **kw):
+    if call == "kernel_finish_times":
+        return rep.kernel_finish_times(pn, **kw)
+    return getattr(rep, call)(pn, ts, **kw)
+
+
+def _arrays(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _same_bits(a, b):
+    return all(x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+               for x, y in zip(_arrays(a), _arrays(b)))
+
+
+def _by_hand(rep, call, pn, ts):
+    """The call's op on float32 inputs packed by hand on the host: the
+    tables from ``kernel_args()``, the ceilings padded to (B, F, P, K), the
+    levels broadcast to (B, T)."""
+    from repro_torch.kernels.ppoly_eval import (PAD_START, ppoly_eval,
+                                                ppoly_first_crossing, ppoly_min_eval)
+
+    r = rep.proc_results[pn]
+    q = np.ascontiguousarray(np.broadcast_to(np.asarray(ts, np.float32),
+                                             (rep.B, len(ts))))
+    if call == "sample_progress":
+        return ppoly_eval(*r.progress.kernel_args(), q).numpy()
+    if call == "kernel_finish_times":
+        y = np.full((rep.B, 1), r.p_end, np.float32)
+        out = ppoly_first_crossing(*r.progress.kernel_args(), y).numpy()[:, 0]
+        return np.where(out >= 1e29, np.inf, out.astype(np.float64))
+    packs = [c.kernel_args() for c in r.ceilings]
+    P = max(s.shape[1] for s, _ in packs)
+    K = max(c.shape[-1] for _, c in packs)
+    starts = np.full((rep.B, len(packs), P), PAD_START, np.float32)
+    coeffs = np.zeros((rep.B, len(packs), P, K), np.float32)
+    for f, (s, c) in enumerate(packs):
+        starts[:, f, :s.shape[1]] = s
+        coeffs[:, f, :s.shape[1], :c.shape[-1]] = c
+    vals, arg = ppoly_min_eval(starts, coeffs, q)
+    return vals.numpy(), arg.numpy()
+
+
+@pytest.mark.parametrize("call", QUERIES)
+def test_curve_queries_equal_the_ops_on_packed_inputs(both, call):
+    """Each call gives the bits of its op on inputs packed by hand, with the
+    reference's dtypes and shapes; a second call (its tables already on the
+    device) gives the same bits in new arrays."""
+    _pr, rep_r, _pt, rep_t = both
+    ts = np.linspace(-5.0, 420.0, 333)
+    for pn in rep_t.order:
+        first = _query(rep_t, call, pn, ts)
+        second = _query(rep_t, call, pn, ts)
+        assert _same_bits(first, _by_hand(rep_t, call, pn, ts))
+        assert _same_bits(second, first)
+        for a, b in zip(_arrays(first), _arrays(second)):
+            assert not np.shares_memory(a, b)
+        ref = _query(rep_r, call, pn, ts, use_pallas=False)
+        assert [(a.dtype, a.shape) for a in _arrays(first)] == \
+            [(np.asarray(a).dtype, np.asarray(a).shape) for a in _arrays(ref)]
+
+
+def test_subset_and_concat_reports_answer_as_the_reference(both):
+    """Reports built from a Report carry none of its engine results and
+    none of its tables on the device: their curve queries raise as the
+    reference's do, after the parent's tables reached the device.  A concat
+    of one Report is that Report, and a Report of other scenarios of the
+    same plan answers from its own tables."""
+    from repro.analysis.report import concat_reports as ref_concat
+    from repro_torch.analysis.report import concat_reports
+
+    _pr, rep_r, plan_t, rep_t = both
+    ts = np.linspace(0.0, 400.0, 50)
+    for call in QUERIES:
+        _query(rep_t, call, "task3", ts)
+    assert {("progress", "task3"), ("ceilings", "task3")} <= set(rep_t._tables_cache)
+    pairs = [(rep_t.subset([3, 1]), rep_r.subset([3, 1])),
+             (concat_reports([rep_t.subset([0]), rep_t.subset([1, 2])]),
+              ref_concat([rep_r.subset([0]), rep_r.subset([1, 2])]))]
+    for mine, ref in pairs:
+        assert not mine._tables_cache
+        for call in QUERIES:
+            with pytest.raises(ValueError) as got:
+                _query(mine, call, "task3", ts)
+            with pytest.raises(ValueError) as want:
+                _query(ref, call, "task3", ts, use_pallas=False)
+            # the same message; the backend is named after each package's engine
+            assert str(got.value) == str(want.value).replace("'jax'", "'torch'")
+    assert concat_reports([rep_t]) is rep_t
+    other = plan_t.sweep(plan_t.prepare(paper.sweep_scenarios(FRACS[::2])),
+                         backend="torch")
+    for call in QUERIES:
+        got = _query(other, call, "task3", ts)
+        assert _same_bits(got, _by_hand(other, call, "task3", ts))
+        for a, b in zip(_arrays(got), _arrays(_query(rep_t, call, "task3", ts))):
+            np.testing.assert_allclose(a, b[::2], rtol=1e-5, atol=1e-5)
+
+
 def _ramped_specs(mod, ramp_resource):
     link = mod.LINK_BPS
     return mod.sweep_scenarios(FRACS[:6]) + [

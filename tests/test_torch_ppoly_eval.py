@@ -188,7 +188,8 @@ def test_cpu_tensors_never_launch_a_kernel():
     assert kernel.launches == {
         "ppoly_eval": 0, "ppoly_eval_vec": 0, "ppoly_eval_tile": 0,
         "ppoly_min_eval": 0, "ppoly_min_eval_vec": 0, "ppoly_min_eval_tile": 0,
-        "ppoly_first_crossing": 0}
+        "ppoly_first_crossing": 0, "ppoly_first_crossing_row": 0,
+        "ppoly_first_crossing_tile": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -231,6 +232,27 @@ def test_route_is_a_function_of_the_shape(P, K, F, want):
     if F == 1:
         assert kernel.route(P, K) == want
     assert want in kernel.ROUTES
+
+
+@pytest.mark.parametrize("P,K,T,want", [
+    (9, 3, 1, "row"),      # kernel_finish_times on the analysis path
+    (9, 2, 1, "row"),
+    (1, 1, 1, "row"),
+    (16, 3, 1, "row"),     # the most pieces the row route takes
+    (16, 3, kernel.ROW_MAX_T, "row"),
+    (9, 3, kernel.ROW_MAX_T + 1, "tile"),
+    (1, 1, kernel.ROW_MAX_T, "row"),
+    (1, 1, kernel.ROW_MAX_T + 1, "tile"),
+    (9, 3, 1024, "tile"),
+    (1, 2, 4097, "tile"),
+    (17, 3, 1, "tile"),
+    (17, 1, 1024, "tile"),
+    (64, 2, 1, "tile"),
+])
+def test_crossing_route_is_a_function_of_the_shape(P, K, T, want):
+    assert kernel.ROW_MAX_T == 16
+    assert kernel.crossing_route(P, K, T) == want
+    assert want in kernel.CROSSING_ROUTES
 
 
 # --------------------------------- the analysis path's shapes, scaled in B ----
@@ -278,6 +300,87 @@ def test_min_eval_matches_reference_at_main_path_shape(pallas):
     np.testing.assert_allclose(_np(v_t), np.asarray(v_r), rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(_np(a_t), np.asarray(a_r))
     assert (_np(a_t)[::3] == 0).all() and (_np(a_t) == 1).any()
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["jnp", "pallas_interpret"])
+def test_first_crossing_matches_reference_at_main_path_shape(pallas):
+    """B = 10,000, T = 1, P = 9, K = 3: the call of kernel_finish_times,
+    with levels from below the first value to above the last real piece's
+    start value."""
+    B = 10_000
+    rng = np.random.default_rng(18)
+    starts, coeffs, _q = _main_path_case(rng, B=B, T=1)
+    s, c = starts[:, 0], coeffs[:, 0]
+    top = c[..., 0].max(-1)
+    y = (rng.uniform(-0.1, 1.3, (B, 1)) * top[:, None]).astype(np.float32)
+    got = ops.ppoly_first_crossing(torch.from_numpy(s), torch.from_numpy(c),
+                                   torch.from_numpy(y))
+    want = ref_ops.ppoly_first_crossing(s, c, y, use_pallas=pallas,
+                                        interpret=True if pallas else None)
+    assert got.shape == (B, 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert (_np(got) == s[:, :1]).any()      # levels at or below f(start)
+
+
+def _crossing_edge_case(rng, B, P=8, T=6):
+    """Seeded monotone rows of degree <= 2 with the edges a crossing meets:
+    duplicate starts (upward jumps), padding pieces, flat pieces, concave
+    pieces (c2 < 0) whose vertex lies below some levels, so that the
+    discriminant there is negative, and a flat last piece in every other
+    row; levels below f at the first start, at piece values (jumps), inside
+    the range and above it (never reached).  A concave piece's vertex lies
+    half its length past its end, so it still rises there at a third of its
+    first slope: no level meets a piece at a tangent, where a float32
+    crossing time is ill-conditioned and the two packages' roundings of the
+    discriminant (the reference's compiler may fuse its multiply and add)
+    can fall on either side of 0."""
+    starts = np.full((B, P), 1e30)
+    coeffs = np.zeros((B, P, 3))
+    y = np.zeros((B, T))
+    for b in range(B):
+        n = int(rng.integers(1, P + 1))
+        xs = np.sort(rng.uniform(-5.0, 40.0, n))
+        if n > 2 and rng.random() < 0.5:
+            xs[2] = xs[1]                     # duplicate start: a jump
+        val = float(rng.uniform(-5.0, 5.0))
+        for i in range(n):
+            ln = xs[i + 1] - xs[i] if i + 1 < n else None
+            kind = rng.choice(["flat", "linear", "convex", "concave"])
+            if ln is None:                    # the last piece rises forever, or is flat
+                kind = "flat" if b % 2 else rng.choice(["linear", "convex"])
+            if kind == "concave" and ln > 0:
+                a = float(rng.uniform(0.01, 0.5))
+                c1, c2 = 3.0 * a * ln, -a     # vertex at 1.5 ln
+            else:
+                c1 = 0.0 if kind in ("flat", "concave") else float(rng.uniform(0.1, 4.0))
+                c2 = float(rng.uniform(0.01, 0.3)) if kind == "convex" else 0.0
+            starts[b, i] = xs[i]
+            coeffs[b, i] = val, c1, c2
+            if ln is not None:
+                val += c1 * ln + c2 * ln * ln
+                if rng.random() < 0.3:
+                    val += float(rng.uniform(0.5, 10.0))   # upward jump
+        c0 = coeffs[b, :n, 0]
+        y[b] = [c0[0] - rng.uniform(0.1, 5.0), c0[rng.integers(n)],
+                rng.uniform(c0[0], val + 1.0), rng.uniform(c0[0], val + 1.0),
+                val + rng.uniform(1.0, 50.0), val]
+    return (starts.astype(np.float32), coeffs.astype(np.float32),
+            y.astype(np.float32))
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_first_crossing_edge_cases_match_reference(seed, pallas):
+    starts, coeffs, y = _crossing_edge_case(np.random.default_rng(seed), B=40)
+    c0, c1, c2 = (coeffs[:, None, :, k] for k in range(3))
+    disc = c1 * c1 - 4.0 * c2 * (c0 - y[:, :, None])          # (B, T, P)
+    assert ((disc < 0) & (c2 != 0) & (starts < 5e29)[:, None, :]).any()
+    got = _np(ops.ppoly_first_crossing(starts, coeffs, y))
+    want = np.asarray(ref_ops.ppoly_first_crossing(
+        starts, coeffs, y, use_pallas=pallas, interpret=True if pallas else None))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert (got >= 1e30).any() and (got < 1e30).any()
+    np.testing.assert_array_equal(got[:, 0], starts[:, 0])   # below f(start)
 
 
 # ------------------------------------------------- CUDA kernels on a card ----

@@ -1,5 +1,6 @@
 """The curve-query CUDA kernels on a card: each route against the plain
-version, and the "vec" route bit for bit against the "tile" route.
+version, and the "vec" route (and the first crossing's "row" route) bit for
+bit against the "tile" route.
 
 Imports no JAX and nothing of ``repro``, so that it runs on a machine with a
 card and without JAX::
@@ -128,3 +129,98 @@ def test_shapes_outside_the_vec_kernels_take_the_tile_route(cuda, P, K, F):
     assert torch.equal(arg, a_r)
     with pytest.raises(ValueError, match="vec route takes"):
         kernel.launch_min_eval("vec", starts, coeffs, q)
+
+
+# ------------------------------------------------------ the first crossing ----
+def _crossing_case(seed, B, T, P, K, dev):
+    """Seeded monotone rows of degree < K: duplicate starts, padding pieces,
+    non-negative slopes and curvature, each piece starting at or above the
+    previous one's end (upward jumps), and levels from below the first value
+    to above the last real piece's start value (never reached in the odd
+    rows, whose last real piece is flat)."""
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.uniform(0.0, 50.0, (B, P)), -1)
+    starts[:, 0] = rng.uniform(-2.0, 0.0, B)
+    if P > 2:
+        starts[::3, 2] = starts[::3, 1]
+    n_real = rng.integers(1, P + 1, B)
+    real = np.arange(P)[None] < n_real[:, None]
+    starts[~real] = 1e30
+    coeffs = np.zeros((B, P, K))
+    if K > 1:
+        coeffs[..., 1] = np.where(rng.random((B, P)) < 0.8,
+                                  rng.uniform(0.0, 3.0, (B, P)), 0.0)
+    if K > 2:
+        coeffs[..., 2] = np.where(rng.random((B, P)) < 0.5,
+                                  rng.uniform(0.0, 0.3, (B, P)), 0.0)
+    coeffs[1::2, :, 1:] *= (np.arange(P) != n_real[1::2, None] - 1)[..., None]
+    jumps = np.where(rng.random((B, P)) < 0.3, rng.uniform(0.0, 20.0, (B, P)), 0.0)
+    coeffs[:, 0, 0] = rng.uniform(-5.0, 5.0, B)
+    for p in range(P - 1):
+        ln = np.where(real[:, p + 1], starts[:, p + 1] - starts[:, p], 0.0)
+        c = coeffs[:, p]
+        end = c[:, 0] + (c[:, 1] * ln if K > 1 else 0.0) + (c[:, 2] * ln * ln if K > 2 else 0.0)
+        coeffs[:, p + 1, 0] = end + jumps[:, p]
+    last = coeffs[np.arange(B), n_real - 1, 0]
+    y = rng.uniform(-0.1, 1.5, (B, T)) * (np.abs(last)[:, None] + 1.0)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)  # noqa: E731
+    return t(starts), t(coeffs), t(y)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("P,K", [(9, 3), (1, 2), (16, 1), (5, 3), (12, 2)])
+@pytest.mark.parametrize("B,T", [(1, 1), (5, 1), (10_000, 1), (37, 3), (129, 16),
+                                 (33, 17), (20, 32), (20, 129), (9, 1025), (3, 4097),
+                                 (130, 1024)])
+def test_crossing_routes_match_plain_and_tile(cuda, B, T, P, K):
+    """Ragged B and T, and the same levels 4 bytes off a 16-byte boundary:
+    the op takes the route ``kernel.crossing_route`` names and counts it;
+    both routes agree with the plain version, and the row route (which
+    takes any T) gives the tile route's bits."""
+    starts, coeffs, y = _crossing_case(B * 7 + T + P, B, T, P, K, cuda)
+    want_rt = kernel.crossing_route(P, K, T)
+    for yy in (y, _misaligned(y)) if T > 1 else (y,):
+        before = dict(kernel.launches)
+        got = ops.ppoly_first_crossing(starts, coeffs, yy)
+        torch.cuda.synchronize()
+        assert kernel.launches == {
+            **before, "ppoly_first_crossing": before["ppoly_first_crossing"] + 1,
+            f"ppoly_first_crossing_{want_rt}":
+                before[f"ppoly_first_crossing_{want_rt}"] + 1}
+        want = ref.ppoly_first_crossing_ref(starts, coeffs, yy)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+        tile = kernel.launch_crossing("tile", starts, coeffs, yy)
+        row = kernel.launch_crossing("row", starts, coeffs, yy)
+        torch.cuda.synchronize()
+        assert _same_bits(row, tile)
+        assert _same_bits(got, tile)
+        assert bool((got >= 1e30).any()) or B * T < 40
+
+
+@pytest.mark.requires_cuda
+def test_crossing_main_path_shape_takes_the_row_route(cuda):
+    """B = 10,000, T = 1, P = 9, K = 3, as kernel_finish_times gives them."""
+    starts, coeffs, y = _crossing_case(17, 10_000, 1, 9, 3, cuda)
+    kernel.reset_launches()
+    got = ops.ppoly_first_crossing(starts, coeffs, y)
+    torch.cuda.synchronize()
+    assert kernel.launches["ppoly_first_crossing_row"] == 1
+    assert kernel.launches["ppoly_first_crossing"] == 1
+    assert _same_bits(got, kernel.launch_crossing("tile", starts, coeffs, y))
+    torch.testing.assert_close(got, ref.ppoly_first_crossing_ref(starts, coeffs, y),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("T", [1, 1024])
+def test_crossing_beyond_16_pieces_takes_the_tile_route(cuda, T):
+    starts, coeffs, y = _crossing_case(T, 21, T, 17, 3, cuda)
+    before = dict(kernel.launches)
+    got = ops.ppoly_first_crossing(starts, coeffs, y)
+    torch.cuda.synchronize()
+    assert (kernel.launches["ppoly_first_crossing_tile"]
+            == before["ppoly_first_crossing_tile"] + 1)
+    torch.testing.assert_close(got, ref.ppoly_first_crossing_ref(starts, coeffs, y),
+                               rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="the row route takes"):
+        kernel.launch_crossing("row", starts, coeffs, y)
