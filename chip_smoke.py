@@ -29,8 +29,16 @@ every evaluation and minimum on the "vec" route, every crossing on "row";
 each result equal bit for bit to the op on inputs packed by hand, whose
 steps are timed; the main path's results copied back again into pageable
 and into pinned memory, in turns; on fresh Reports the first and second
-call of each, and the steps the Report takes), lm_prefill (yi-9b,
-bf16, B = 2, S = 4096; every flash call on the tensor-core kernel),
+call of each, and the steps the Report takes), optimize_fig7
+(``plan.optimize`` over ``fig7_space()`` on the card: the grid's optimum,
+the reference's value, the same search on the CPU; one value-and-gradient
+sweep and one ladder sweep timed), optimize_grad (gradients against
+central differences, linear and ramped, each the same bits twice),
+mc_b10k (``plan.mc(mc_spec(), n=10_000, seed=0)`` against the reference's
+quantiles and dominant factors and the numpy twin; its steps timed),
+optimize_mc (the p95 search over 256 draws twice, bit for bit),
+lm_prefill (yi-9b, bf16, B = 2, S = 4096; every flash call on the
+tensor-core kernel),
 lm_serve (``repro_torch.launch.serve``
 with yi-9b, 8 requests; prefill against decode beside the bf16 batch-split
 floor), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096; every wkv6
@@ -98,6 +106,19 @@ RWKV_ARCH = "rwkv6-1.6b"
 RWKV_FLOOR_FACTOR = 2.0
 RWKV_F32_TOL = 1e-3
 WKV_LONG = (1, 32_768, 32, 64)      # B, L, H, N: the prefill_32k length
+#: the reference package's results, from ``repro`` (JAX) on a CPU:
+#: ``compile_paper_plan(0.5).optimize(space=fig7_space(), max_evals=50)``
+#: and ``plan.mc(mc_spec(), n=10_000, seed=0)``
+REF_FIG7_VALUE = 206.22720298703013
+REF_MC_QUANTILES = {"p50": 299.07836469867306, "p95": 365.39776369551555,
+                    "p99": 393.52668841248527}
+REF_MC_DOMINANT = {"dl1.link": 0.5451, "dl2.link": 0.4516, "task1.cpu": 0.0033}
+MC_N = 10_000
+FIG7_SPACING = 0.96 / 599           # the Fig. 7 grid's step
+#: gradient cases held against central differences (h = 1e-5) at the
+#: reference's bar: targets, theta, ramped dl1 link
+GRAD_CASES = (("caps", ("task1.cpu", "dl1.link"), (1.31, 0.73), False),
+              ("ramped", ("task1.cpu", "task2.cpu"), (1.37, 0.81), True))
 
 
 def emit(phase: str, **kv) -> None:
@@ -124,6 +145,15 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median_s(fn, runs: int = 5) -> float:
+    """Median wall seconds of ``fn()`` over ``runs`` calls, each ending in a
+    device synchronize, after one warm-up call."""
+    import statistics
+
+    host_s(fn)
+    return statistics.median(host_s(fn)[0] for _ in range(runs))
 
 
 def host_s(fn):
@@ -1106,7 +1136,7 @@ def phase_sweep_fig7(paper):
          golden=[float(m) for m in gold.makespans],
          cold_s=cold, warm_s=warm, numpy_s=numpy_s,
          iter_caps=plan._torch_engine.proven_caps_rows())
-    return plan
+    return float(np.linspace(0.02, 0.98, 600)[i]), float(ms)
 
 
 def ramped_scenarios(paper, scenarios, B: int, seed: int = 0):
@@ -1145,6 +1175,165 @@ def phase_sweep_b10k(paper, scenarios):
          cold_s=cold, warm_s=warm, numpy_s=numpy_s,
          best=rep.top_k(1)[0][1:], iter_caps=plan._torch_engine.proven_caps_rows())
     return rep, pack
+
+
+# ------------------------------------------- optimize and Monte Carlo ----
+def diff_objective(plan, space, scenarios, n: int = 1, q=None):
+    """The differentiable objective ``plan.optimize`` builds, over a pack
+    of ``scenarios`` (``n`` draws per candidate, quantile ``q``)."""
+    from repro_torch.analysis.optimize import _DiffObjective
+    from repro_torch.analysis.pack import ThetaMap
+
+    return _DiffObjective(plan, ThetaMap(plan, space.axes),
+                          plan.prepare(scenarios), n, q)
+
+
+def phase_optimize_fig7(paper, scenarios, grid):
+    """``plan.optimize`` over the Fig. 7 split on the card, held against
+    this run's grid optimum, the reference's value and the same search on
+    the CPU; then one value-and-gradient sweep and one ladder sweep timed.
+    The peak device memory is counted above what was allocated when the
+    phase began."""
+    import numpy as np
+    import torch
+
+    best_frac, best_ms = grid
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    plan = paper.compile_paper_plan(0.5)
+    check(plan.device.type == "cuda", f"plan on {plan.device}")
+    wall, opt = host_s(lambda: plan.optimize(space=paper.fig7_space(),
+                                             max_evals=50))
+    theta, value = float(opt.theta[0]), float(opt.value)
+    check(opt.evals <= 50, f"{opt.evals} evaluations")
+    check(abs(theta - best_frac) <= FIG7_SPACING + 1e-12,
+          f"theta {theta}, grid best {best_frac}")
+    check(value <= best_ms * (1.0 + 1e-6), f"value {value}, grid {best_ms}")
+    check(abs(float(opt.report.makespan[0]) - value) <= 1e-9 * value,
+          f"report {opt.report.makespan[0]} against value {value}")
+    check(abs(value - REF_FIG7_VALUE) <= 1e-6 * REF_FIG7_VALUE,
+          f"value {value}, reference {REF_FIG7_VALUE}")
+    cpu_s, cpu = host_s(lambda: paper.compile_paper_plan(
+        0.5, device="cpu").optimize(space=paper.fig7_space(), max_evals=50))
+    check(abs(float(cpu.theta[0]) - theta) <= 1e-9 * theta
+          and abs(float(cpu.value) - value) <= 1e-9 * value
+          and (cpu.evals, cpu.iters) == (opt.evals, opt.iters),
+          f"CPU search: {cpu.theta} {cpu.value} {cpu.evals} {cpu.iters}")
+    f = diff_objective(plan, paper.fig7_space(),
+                       [scenarios.override(label="base")])
+    grad_s = median_s(lambda: f.value_grad(np.array([[0.5]])))
+    values_s = median_s(lambda: f.values(np.linspace(0.3, 0.98, 8)[:, None]))
+    emit("optimize_fig7", theta=theta, value=value, evals=opt.evals,
+         sweeps=opt.sweeps, iters=opt.iters, converged=opt.converged,
+         iter_cap=f.cap, wall_s=wall, value_grad_s=grad_s, values_s=values_s,
+         values_rows=8, cpu={"theta": float(cpu.theta[0]),
+                             "value": float(cpu.value), "evals": cpu.evals,
+                             "iters": cpu.iters, "wall_s": cpu_s},
+         peak_memory_bytes=torch.cuda.max_memory_allocated() - base)
+
+
+def phase_optimize_grad(paper, scenarios):
+    """Gradients on the card against central differences (h = 1e-5) at the
+    reference's bar, on a linear and a ramped (quadratic) trace; each also
+    taken twice, bit for bit the same."""
+    import numpy as np
+    from repro_torch.analysis import cap_space
+
+    plan = paper.compile_paper_plan(0.5)
+    out = []
+    for name, targets, theta, ramped in GRAD_CASES:
+        scs = ([scenarios.ramp_resource("dl1", "link", [0.0, 120.0],
+                                        [1.6e6, 0.6e6], label="ramp")]
+               if ramped else [scenarios.override(label="base")])
+        f = diff_objective(plan, cap_space(list(targets), lo=0.25, hi=4.0),
+                           scs)
+        th = np.asarray(theta, np.float64)[None, :]
+        v, g = f.value_grad(th)
+        check(np.isfinite(v[0]) and np.all(np.isfinite(g)),
+              f"{name}: value {v}, gradient {g}")
+        K, h = th.shape[1], 1e-5
+        eye = np.eye(K) * h
+        vv = f.values(np.concatenate([th + eye, th - eye], axis=0))
+        fd = (vv[:K] - vv[K:]) / (2.0 * h)
+        np.testing.assert_allclose(g[0], fd, rtol=1e-4,
+                                   atol=1e-6 * max(1.0, abs(float(v[0]))),
+                                   err_msg=f"optimize_grad {name}")
+        check(np.array_equal(g, f.value_grad(th)[1]),
+              f"{name}: two gradients differ")
+        out.append({"case": name, "ramps": f.pack.ramps, "theta": list(theta),
+                    "value": float(v[0]), "grad": g[0].tolist(),
+                    "fd": fd.tolist(), "iter_cap": f.cap})
+    emit("optimize_grad", cases=out)
+
+
+def phase_mc_b10k(paper):
+    """``plan.mc(mc_spec(), n=10_000, seed=0)`` on the card against the
+    reference's quantiles and dominant factors and against the numpy twin
+    on the same draws; then its steps one by one, timed."""
+    import numpy as np
+    from repro_torch.analysis.uncertainty import mc_report_from_sweep, sample_spec
+
+    plan = paper.compile_paper_plan(0.5)
+    spec = paper.mc_spec()
+    wall, mc = host_s(lambda: plan.mc(spec, n=MC_N, seed=0))
+    check_torch_report(mc.report, "mc_b10k")
+    quant = mc.quantiles()
+    for k, want in REF_MC_QUANTILES.items():
+        check(abs(quant[k] - want) <= 1e-5 * want,
+              f"{k} {quant[k]}, reference {want}")
+    dom = {a.label: a.p_dominant for a in mc.attribution()}
+    for label, want in REF_MC_DOMINANT.items():
+        check(abs(dom[label] - want) <= 2.5 / MC_N,
+              f"{label} dominant {dom[label]}, reference {want}")
+    sample_s, samples = host_s(lambda: sample_spec(plan, spec, MC_N, seed=0))
+    prepare_s, pack = host_s(lambda: plan.prepare(samples.scenarios))
+    sweep_s, rep = host_s(lambda: plan.sweep(pack))
+
+    def report():
+        out = mc_report_from_sweep(rep, samples)
+        out.quantiles(), out.attribution()
+        return out
+
+    report_s, mc2 = host_s(report)
+    check(np.array_equal(mc2.makespans, mc.makespans),
+          "the split's makespans differ from plan.mc's")
+    numpy_s, rep_np = host_s(lambda: plan.sweep(pack, backend="numpy"))
+    np.testing.assert_allclose(mc.makespans, rep_np.makespans, rtol=1e-9,
+                               err_msg="mc_b10k vs numpy twin")
+    emit("mc_b10k", n=MC_N, quantiles=quant,
+         p_dominant={k: dom[k] for k in REF_MC_DOMINANT},
+         fallback=mc.fallback_count, wall_s=wall,
+         split={"sample_spec_s": sample_s, "prepare_s": prepare_s,
+                "sweep_s": sweep_s, "report_s": report_s},
+         numpy_sweep_s=numpy_s, iter_caps=plan._torch_engine.proven_caps_rows())
+
+
+def phase_optimize_mc(paper):
+    """The risk-aware search (p95 over 256 draws) twice on the card: the
+    same bits both times; then one ladder sweep (B = 8 x 256) and one
+    value-and-gradient sweep (B = 256) timed."""
+    import numpy as np
+    from repro_torch.analysis import cap_space, mc_quantile
+    from repro_torch.analysis.uncertainty import sample_spec
+
+    plan = paper.compile_paper_plan(0.5)
+    obj = mc_quantile(paper.mc_spec(), q=0.95, n=256, seed=0)
+    space = cap_space(["task1.cpu"], lo=0.5, hi=2.0)
+    (wall_a, a), (wall_b, b) = (host_s(lambda: plan.optimize(
+        obj, space, max_iters=3)) for _ in range(2))
+    check(np.array_equal(a.theta, b.theta) and a.value == b.value
+          and a.evals == b.evals and np.array_equal(a.trajectory, b.trajectory),
+          f"two runs differ: {a.theta} {b.theta} {a.value} {b.value}")
+    f = diff_objective(plan, space,
+                       sample_spec(plan, obj.spec, obj.n, seed=obj.seed).scenarios,
+                       obj.n, obj.q)
+    values_s = median_s(lambda: f.values(np.linspace(0.5, 2.0, 8)[:, None]))
+    grad_s = median_s(lambda: f.value_grad(np.array([[1.25]])))
+    emit("optimize_mc", theta=float(a.theta[0]), value=float(a.value),
+         evals=a.evals, sweeps=a.sweeps, iters=a.iters,
+         trajectory=a.trajectory.tolist(), wall_s=[wall_a, wall_b],
+         iter_cap=f.cap, values_B=8 * obj.n, values_s=values_s,
+         value_grad_B=obj.n, value_grad_s=grad_s)
 
 
 #: each curve query of the Report: its op and the tables it reads
@@ -1470,7 +1659,7 @@ def main() -> int:
     # ---- the analysis path, counted: sweeps and the Report's curve queries ----
     with Recorder(kernel, KERNELS) as rec:
         reset_launches()
-        phase_sweep_fig7(paper)
+        grid = phase_sweep_fig7(paper)
         rep, pack = phase_sweep_b10k(paper, scenarios)
         ts, shapes, walls, results = phase_queries(rep)
         torch.cuda.synchronize()
@@ -1508,6 +1697,17 @@ def main() -> int:
         rows.append(ppoly_row(name, args, launches, errs[name]))
     analysis_peak = torch.cuda.max_memory_allocated()
     del rec, rep, pack, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- optimize and Monte Carlo: float64 PyTorch, no kernel of their own ----
+    reset_launches()
+    phase_optimize_fig7(paper, scenarios, grid)
+    phase_optimize_grad(paper, scenarios)
+    phase_mc_b10k(paper)
+    phase_optimize_mc(paper)
+    torch.cuda.synchronize()
+    emit("optimize_and_mc_launches", launches=read_launches())
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -28,12 +28,14 @@ from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.ppoly import PPoly
+from repro_torch.kernels.ppoly_eval.ref import PAD_START
 from repro_torch.sweep.batch import Scenario, ScenarioBatch
 from repro_torch.sweep.plin import BPL, UnsupportedScenario, is_batchable_resource
 
-__all__ = ["ScenarioPack"]
+__all__ = ["CapAxis", "PwAxis", "ScenarioPack", "ThetaMap"]
 
 
 def _copy_scenario(sc: Scenario) -> Scenario:
@@ -366,3 +368,174 @@ def _pack_proc_args(plan: Any, bats: list[Scenario],
                 args["res"][r] = plan._base_res_row[key]
         out[name] = args
     return out
+
+
+# ---------------------------------------------------------------------------
+# parameterized overrides: a flat theta vector mapped onto resource caps and
+# ramp slopes on the device — the pack axis behind plan.optimize() (no host
+# re-packing between candidate evaluations)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CapAxis:
+    """Multiplies one resource input's packed planes by ``scale(theta)``.
+
+    ``scale`` maps one theta row (a ``(K,)`` float64 tensor) to a scalar
+    tensor with torch ops (plain arithmetic and ``torch`` calls); it is
+    batched over the candidates with ``torch.func.vmap`` inside the sweep.
+    The factor composes multiplicatively with whatever the pack rows
+    already carry — including Monte Carlo draws, which is what keeps common
+    random numbers intact under ``optimize(objective=mc_quantile(...))``.
+    """
+
+    proc: str
+    res: str
+    scale: Any  # Callable[[theta (K,)], scalar]
+
+
+@dataclass(frozen=True)
+class PwAxis:
+    """Rebuilds one resource input as a theta-dependent piecewise-linear
+    function: ``build(theta) -> (starts, c0, c1)``, each of length
+    ``pieces`` (torch ops on one ``(K,)`` row, batched with
+    ``torch.func.vmap``; make constants with ``theta.new_zeros`` and the
+    like so they land on theta's device), with ``c0``/``c1`` the
+    value/slope of each piece in LOCAL coordinates ``u = t - start`` — the
+    packed-array convention of :class:`repro_torch.sweep.plin.BPL`.
+
+    Breakpoints may depend on ``theta`` — the engine locates pieces by value
+    on the device, so gradients flow through moving knots too (e.g. the
+    Fig. 7 reallocation instant ``V / (theta * L)``).  Unlike
+    :class:`CapAxis` this REPLACES the slot's packed rows, so it cannot
+    compose with Monte Carlo draws on the same input
+    (:meth:`ThetaMap.validate_spec_overlap`).
+    """
+
+    proc: str
+    res: str
+    pieces: int
+    build: Any  # Callable[[theta (K,)], (starts, c0, c1)]
+
+
+def _set_slot(a, ri: int, pi: int, row):
+    """``a`` with its ``[ri, pi]`` plane replaced by ``row`` — out of place,
+    so autograd sees the edit: ``a (Lr, Lp, B, P)``, ``row (B, P)``."""
+    hit = torch.zeros(a.shape[:2], dtype=torch.bool, device=a.device)
+    hit[ri, pi] = True
+    return torch.where(hit[:, :, None, None], row, a)
+
+
+class ThetaMap:
+    """Resolved theta axes of one plan: slot coordinates + the applier
+    handed to :meth:`repro_torch.sweep.torch_engine.TorchSweepEngine.make_diff_run`.
+
+    Each axis targets one resource input ``proc.res``; resolution maps it to
+    its engine coordinates ``(level, slot, process-in-level)`` once, host-
+    side.  :meth:`apply` then edits the broadcast ``(Lr, Lp, B, P)`` input
+    planes on the device — a multiply for :class:`CapAxis`, a row rebuild
+    (widening the piece axis if needed) for :class:`PwAxis` — so a whole
+    optimizer step (multi-start × line-search candidates) is one sweep.
+    """
+
+    def __init__(self, plan: Any, axes: Sequence[CapAxis | PwAxis]):
+        self.plan = plan
+        self.axes = tuple(axes)
+        self._by_level: dict[int, list[tuple[int, int, Any]]] = {}
+        seen: set[tuple[str, str]] = set()
+        for ax in self.axes:
+            key = (ax.proc, ax.res)
+            if key in seen:
+                raise ValueError(
+                    f"theta axes target {ax.proc}.{ax.res} more than once; "
+                    "fold the parameterization into one axis")
+            seen.add(key)
+            li, pi, ri = self._locate(plan, ax.proc, ax.res)
+            self._by_level.setdefault(li, []).append((ri, pi, ax))
+
+    @staticmethod
+    def _locate(plan: Any, proc: str, res: str) -> tuple[int, int, int]:
+        for li, names in enumerate(plan.levels):
+            if proc in names:
+                res_names = [lbl for (lbl, *_rest) in plan.res_tables[proc]]
+                if res not in res_names:
+                    raise KeyError(
+                        f"process {proc!r} has no resource {res!r} "
+                        f"(has: {', '.join(res_names) or 'none'})")
+                return li, list(names).index(proc), res_names.index(res)
+        raise KeyError(f"unknown process {proc!r} "
+                       f"(workflow has: {', '.join(plan.order)})")
+
+    def validate_spec_overlap(self, keys: Sequence[tuple[str, str]]) -> None:
+        """Reject :class:`PwAxis` targets that a Monte Carlo spec also
+        perturbs — the rebuild would silently overwrite the draws (a
+        :class:`CapAxis` composes multiplicatively and is fine)."""
+        perturbed = set(keys)
+        for ax in self.axes:
+            if isinstance(ax, PwAxis) and (ax.proc, ax.res) in perturbed:
+                raise ValueError(
+                    f"theta axis rebuilds {ax.proc}.{ax.res}, which the MC "
+                    "spec also perturbs; use a cap (scale) axis so the "
+                    "draws survive, or move the distribution elsewhere")
+
+    def apply(self, IR: tuple, li: int, theta: torch.Tensor) -> tuple:
+        """Edit one level's broadcast resource planes for ``theta``.
+
+        ``IR`` is the ``(starts, c0, c1[, c2])`` tuple of ``(Lr, Lp, B, P)``
+        tensors, ``theta`` the ``(B, K)`` candidate batch (row i
+        parameterizes scenario row i).  Every edit is out of place, so
+        autograd differentiates through it.
+        """
+        ents = self._by_level.get(li)
+        if not ents:
+            return IR
+        s, *vals = IR                     # vals = [c0, c1] or [c0, c1, c2]
+        B = theta.shape[0]
+        for ri, pi, ax in ents:
+            if isinstance(ax, CapAxis):
+                m = torch.func.vmap(ax.scale)(theta)                # (B,)
+                vals = [_set_slot(v, ri, pi, v[ri, pi] * m[:, None])
+                        for v in vals]
+                continue
+            ss, v0, v1 = (a.reshape(B, -1)
+                          for a in torch.func.vmap(ax.build)(theta))  # (B, Pa)
+            Pa, P = ss.shape[-1], s.shape[-1]
+            if Pa > P:  # widen every slot of the level; pads never bind
+                def wide(a, fill):
+                    return torch.cat(
+                        [a, a.new_full(a.shape[:-1] + (Pa - P,), fill)], -1)
+
+                s = wide(s, PAD_START)
+                vals = [wide(v, 0.0) for v in vals]
+                P = Pa
+            elif Pa < P:
+                ss = torch.cat([ss, ss.new_full((B, P - Pa), PAD_START)], -1)
+                v0 = torch.cat([v0, v0.new_zeros((B, P - Pa))], -1)
+                v1 = torch.cat([v1, v1.new_zeros((B, P - Pa))], -1)
+            s = _set_slot(s, ri, pi, ss)
+            vals[0] = _set_slot(vals[0], ri, pi, v0)
+            vals[1] = _set_slot(vals[1], ri, pi, v1)
+            if len(vals) > 2:             # quadratic plane: rebuilt rows are
+                vals[2] = _set_slot(vals[2], ri, pi, v1.new_zeros((B, P)))
+        return (s, *vals)
+
+    def materialize(self, theta: np.ndarray, label: str | None = None) -> Any:
+        """The HOST-side twin of :meth:`apply`: one concrete scenario spec
+        at ``theta``, for the full-report sweep of an accepted optimum (and
+        for finite-difference validation against the regular engine)."""
+        from .scenarios import override
+
+        th = np.asarray(theta, np.float64)
+        row = torch.as_tensor(th)
+        res: dict[tuple[str, str], PPoly] = {}
+        for ax in self.axes:
+            if isinstance(ax, CapAxis):
+                base = self.plan.base_res[(ax.proc, ax.res)]
+                res[(ax.proc, ax.res)] = base * float(ax.scale(row))
+            else:
+                ss, v0, v1 = (np.asarray(a, np.float64).reshape(-1)
+                              for a in ax.build(row))
+                res[(ax.proc, ax.res)] = PPoly(
+                    ss, [np.array([v0[i], v1[i]]) for i in range(len(ss))])
+        lab = label if label is not None else (
+            "theta[" + ", ".join(f"{v:.6g}" for v in th) + "]")
+        return override(resources=res, label=lab)

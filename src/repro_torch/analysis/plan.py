@@ -24,6 +24,10 @@ The resulting :class:`CompiledWorkflow` then serves
   bottleneck function over runtime,
 * :meth:`~CompiledWorkflow.gain` / :meth:`~CompiledWorkflow.gains` — the
   estimated makespan reduction from relaxing a bottleneck,
+* :meth:`~CompiledWorkflow.mc` — Monte Carlo quantiles, SLO probabilities
+  and bottleneck-attribution probabilities over sampled scenarios,
+* :meth:`~CompiledWorkflow.optimize` — gradient search for the best
+  allocation over the differentiable fused sweep,
 
 all returning the unified :class:`~repro_torch.analysis.report.Report`.
 
@@ -51,9 +55,11 @@ from repro_torch.sweep.plin import (BPL, UnsupportedScenario, compose_scalar,
 from repro_torch.sweep.torch_engine import LazyCeilings, TorchSweepEngine
 
 from .bottleneck import BottleneckFn, derive_bottleneck_fn
+from .optimize import run_optimize
 from .pack import ScenarioPack
 from .report import FinishTimes, Report, report_from_scalar, scalar_shares
 from .scenarios import ScenarioSpec, parse_key, speed_up_data
+from .uncertainty import DEFAULT_QUANTILES, run_mc
 
 __all__ = ["CompiledWorkflow", "compile_workflow"]
 
@@ -310,6 +316,70 @@ class CompiledWorkflow:
                 f"{name!r} (resources: {sorted(p.resources)}, "
                 f"data: {sorted(p.data)})")
         return proc, kind, name
+
+    # ------------------------------------------------------------------
+    # Monte Carlo path (repro_torch.analysis.uncertainty)
+    # ------------------------------------------------------------------
+    def mc(self, spec: Any, n: int = 10_000, *, seed: int = 0,
+           backend: str = "auto", shards: int | None = None,
+           quantile_levels: Sequence[float] | None = None) -> Any:
+        """Monte Carlo analysis of a distribution-valued scenario spec.
+
+        ``spec`` carries :mod:`repro_torch.analysis.dist` distributions on
+        resource caps, ramp slopes, or data scale factors; ``n`` draws are
+        sampled deterministically from ``seed`` and analyzed as ONE fused
+        sweep on ``plan.device``::
+
+            from repro_torch.analysis import dist, scenarios
+            mc = plan.mc(scenarios.override({
+                "dl2.link": dist.lognormal(sigma=0.3)}), n=10_000, seed=7)
+            mc.quantiles()                  # {'p50': ..., 'p95': ..., 'p99': ...}
+            mc.prob(makespan_le=250.0)      # SLO query
+            mc.attribution()[0]             # "dl2.link binds in 83% of draws"
+            mc.sensitivity()                # variance-based axis ranking
+
+        Returns an :class:`repro_torch.analysis.uncertainty.MCReport`; see
+        that module for the sampler's bit-reproducibility contract.
+        ``shards`` other than None or 1 raises: the engine runs one device.
+        """
+        return run_mc(self, spec, n, seed=seed, backend=backend,
+                      shards=shards,
+                      quantile_levels=(DEFAULT_QUANTILES if quantile_levels
+                                       is None else quantile_levels))
+
+    def optimize(self, objective: Any = "makespan", space: Any = None, *,
+                 constraints: Any = None, starts: int = 1, rungs: int = 8,
+                 max_iters: int = 25, max_evals: int | None = None,
+                 ftol: float = 1e-9, seed: int | None = None,
+                 deadline_s: float | None = None) -> Any:
+        """Search ``space`` for the allocation minimizing ``objective`` by
+        projected gradient descent over the differentiable fused sweep.
+
+        Every optimizer step evaluates its whole candidate ladder (line
+        search × multi-start) as ONE fused ``(B,)`` sweep on
+        ``plan.device``, and gradients come from ``torch.autograd`` through
+        the fixed-trip event loop — tens of evaluations where the Fig. 7
+        grid needs 600::
+
+            from repro_torch.analysis import optimize
+            space = optimize.cap_space(["task1.cpu", "dl1.link"],
+                                       lo=0.25, hi=4.0)
+            opt = plan.optimize(space=space)            # point makespan
+            opt = plan.optimize(                        # p95 under risk
+                optimize.mc_quantile(mc_spec(), q=0.95, n=256), space)
+            opt.theta, opt.value, opt.gain, opt.report
+
+        ``objective`` is ``"makespan"`` or an
+        :class:`~repro_torch.analysis.optimize.mc_quantile`
+        (common-random-number scoring, bit-reproducible for fixed ``seed``).
+        Returns an :class:`~repro_torch.analysis.optimize.OptimizeReport`;
+        see :mod:`repro_torch.analysis.optimize` for the search's knobs and
+        contract.
+        """
+        return run_optimize(self, objective, space, constraints=constraints,
+                            starts=starts, rungs=rungs, max_iters=max_iters,
+                            max_evals=max_evals, ftol=ftol, seed=seed,
+                            deadline_s=deadline_s)
 
     # ------------------------------------------------------------------
     # batched sweep path

@@ -169,3 +169,62 @@ def sweep_scenarios(fracs, *, video_bytes: float = VIDEO_BYTES):
                                             [(1.0 - f) * LINK_BPS, LINK_BPS]),
             }))
     return out
+
+
+def fig7_space(*, lo: float = 0.02, hi: float = 0.98, x0: float = 0.5,
+               video_bytes: float = VIDEO_BYTES):
+    """The Fig. 7 prioritization as a differentiable 1-parameter search
+    space for ``plan.optimize()`` — the gradient counterpart of
+    :func:`sweep_scenarios`.
+
+    ``theta[0]`` is ``frac_task1``.  Both link inputs are rebuilt on the
+    device (:class:`~repro_torch.analysis.pack.PwAxis`): dl1 gets
+    ``theta * LINK_BPS``, dl2 a step from ``(1 - theta) * LINK_BPS`` up to
+    the full link at dl1's finish instant ``video_bytes / (theta *
+    LINK_BPS)`` — a moving breakpoint, which is exactly what the grid sweep
+    cannot differentiate and the theta axis can.
+    """
+    import torch
+
+    from repro_torch.analysis.optimize import Space
+    from repro_torch.analysis.pack import PwAxis
+
+    def dl1_build(th):
+        z = th.new_zeros((1,))
+        return z, torch.reshape(th[0] * LINK_BPS, (1,)), z
+
+    def dl2_build(th):
+        f = th[0]
+        starts = torch.stack([th.new_zeros(()), video_bytes / (f * LINK_BPS)])
+        c0 = torch.stack([(1.0 - f) * LINK_BPS, th.new_full((), LINK_BPS)])
+        return starts, c0, th.new_zeros((2,))
+
+    return Space(
+        axes=(PwAxis("dl1", "link", 1, dl1_build),
+              PwAxis("dl2", "link", 2, dl2_build)),
+        lo=(lo,), hi=(hi,), x0=(x0,), names=("frac_task1",))
+
+
+def mc_spec(*, link_sigma: float = 0.15, cpu_sigma: float = 0.2):
+    """The default uncertainty model of the Sect. 5 workflow for Monte Carlo
+    analysis (``plan.mc(mc_spec())``).
+
+    Distributions reflect what the testbed actually jitters: the shared
+    link's effective rate (measured 97.51 of nominal 100 Mbit/s — lognormal
+    multiplicative noise on both downloads), task CPU speeds (lognormal for
+    the ffmpeg reverse, uniform contention band for the rotate), and the
+    remote file's availability timing (triangular speed-up on dl1's data
+    input).  Every factor is a scale on a piecewise-constant base, so ALL
+    draws stay inside the batched quadratic function class.
+    """
+    from repro_torch.analysis import dist, scenarios
+
+    return scenarios.override(
+        label="paper-mc",
+        resources={
+            ("dl1", "link"): dist.lognormal(sigma=link_sigma),
+            ("dl2", "link"): dist.lognormal(sigma=link_sigma),
+            ("task1", "cpu"): dist.lognormal(sigma=cpu_sigma),
+            ("task2", "cpu"): dist.uniform(0.7, 1.3),
+        },
+        data={("dl1", "remote"): dist.triangular(0.9, 1.0, 1.05)})

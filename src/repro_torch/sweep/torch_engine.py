@@ -16,7 +16,10 @@ the level maxima; padded resource slots never bind (infinite cap) and
 padded ceiling slots sit far above any real ceiling.
 
 The loop runs on the host: each iteration issues the body's tensor ops and
-then reads one boolean back (is any scenario still active?).  Static
+then reads one boolean back (is any scenario still active?).  The
+differentiable path (:meth:`TorchSweepEngine.make_diff_run`, behind
+``plan.optimize``) instead runs a fixed number of bodies per level and
+reads nothing back until the caller asks for the overflow flag.  Static
 (non-edge-fed) data ceilings are composed host-side at pack time
 (:meth:`TorchSweepEngine.level_args`); only edge-fed ceilings, whose inner
 function is an upstream progress computed in the same run, compose on the
@@ -185,21 +188,51 @@ def _eval_slope_quad_right(f, t):
     return _gather(c0, i) + sl * u, sl, torch.zeros_like(sl)
 
 
+_SCALARS: dict = {}
+
+
+def _scalar(like, v: float):
+    """A 0-d tensor ``v`` of ``like``'s dtype on its device, made once per
+    (device, dtype, value): an operand for ``torch.maximum`` /
+    ``torch.minimum`` that costs no launch per call."""
+    key = (like.device, like.dtype, v)
+    if key not in _SCALARS:
+        _SCALARS[key] = torch.full((), v, dtype=like.dtype, device=like.device)
+    return _SCALARS[key]
+
+
 def _first_pos_root(a, b, c, tol=TIME_TOL):
     """Smallest root ``> tol`` of ``a·u² + b·u + c`` (inf when none) — the
     torch twin of :func:`repro_torch.core.ppoly.first_pos_root` (stable
     q-branch).  The discriminant floor (1e-300) matches the reference
-    engine; it moves values by at most 1e-150, far below every tolerance."""
+    engine; it moves values by at most 1e-150, far below every tolerance,
+    and keeps the sqrt's gradient finite at a zero discriminant.  The floor
+    is a ``torch.maximum`` against a tensor, whose gradient at an exact tie
+    is split in half as in the reference (``clamp_min`` would pass it all)."""
+    quadratic = a != 0.0
     lin = torch.where(b != 0.0, -c / torch.where(b != 0.0, b, 1.0), _INF)
     disc = b * b - 4.0 * a * c
-    sq = torch.sqrt(disc.clamp_min(1e-300))
+    sq = torch.sqrt(torch.maximum(disc, _scalar(disc, 1e-300)))
     q = -0.5 * (b + torch.where(b >= 0.0, sq, -sq))
-    r1 = torch.where(a != 0.0, q / torch.where(a != 0.0, a, 1.0), _INF)
-    r2 = torch.where(q != 0.0, c / torch.where(q != 0.0, q, 1.0), _INF)
+    r1 = torch.where(quadratic, q / torch.where(quadratic, a, 1.0), _INF)
+    # c / q only where the quadratic branch is taken: with a == 0 and b == 0
+    # the floored sqrt leaves q ~ 1e-150, and the divide's backward, c / q /
+    # q, would overflow to inf and meet the unselected lane's zero gradient
+    q_ok = (q != 0.0) & quadratic
+    r2 = torch.where(q_ok, c / torch.where(q_ok, q, 1.0), _INF)
     quad = torch.minimum(torch.where(r1 > tol, r1, _INF),
                          torch.where(r2 > tol, r2, _INF))
     quad = torch.where(disc >= 0.0, quad, _INF)
-    return torch.where(a == 0.0, torch.where(lin > tol, lin, _INF), quad)
+    return torch.where(quadratic, quad, torch.where(lin > tol, lin, _INF))
+
+
+def _catch_up(a, b, gap):
+    """First time ``u > TIME_TOL`` at which a progress ``a·u² + b·u`` ahead
+    of the ceiling's closes a ``gap = p - pd`` clamped to ``<= 0``.  The
+    clamp is a ``torch.minimum`` against a tensor: at ``p == pd`` its
+    gradient is split in half between the two sides, as in the reference
+    (``clamp_max`` would pass it all to the gap)."""
+    return _first_pos_root(a, b, torch.minimum(gap, _scalar(gap, 0.0)))
 
 
 def _next_starts(s):
@@ -448,7 +481,8 @@ class _WorkflowSpec:
 # ---------------------------------------------------------------------------
 
 def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
-                 ramps: bool = False):
+                 ramps: bool = False, fixed_iters: bool = False,
+                 need_share: bool = True):
     """Mirror of ``engine.solve_batch``'s event loop, stacked over the
     ``Lp`` processes of one topology level, with fixed-size record buffers
     (two slots per iteration when the level has bursts: burst-stall, then
@@ -468,6 +502,16 @@ def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
     The loop runs while some scenario is active and below its end, at most
     ``iter_cap`` times; the check reads one boolean back from the device per
     iteration.  ``overflow`` reports scenarios still running at the cap.
+
+    ``fixed_iters`` runs exactly ``iter_cap`` bodies with no check, so the
+    level reads nothing back from the device: the path autograd
+    differentiates (:meth:`TorchSweepEngine.make_diff_run`).  Every state
+    update is masked on ``act``, so a body past quiescence changes nothing,
+    and its records are masked (``M = 0``) like the slots the early-stopping
+    loop never writes, which neither the progress assembly nor the share
+    aggregation reads.  ``overflow`` is then a device boolean.
+    ``need_share=False`` skips the share aggregation, which the makespan
+    never reads.
     """
     Lp = len(ls.procs)
     nC, Lr, n_rb = ls.nC, ls.Lr, ls.n_rb
@@ -500,10 +544,11 @@ def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
     active = torch.ones((Lp, B), dtype=torch.bool, device=dev)
     absorbed = (torch.zeros((max(Lr, 1), Lp, B, n_rb), dtype=torch.bool,
                             device=dev) if has_jumps else None)
-    rec = zeros(nbuf, Lp, B, R)
+    slots = []                  # the (nbuf, Lp, B) record of each slot
 
     it = 0
-    while it < iter_cap and bool((active & (p < p_end - ftol)).any()):
+    while it < iter_cap and (fixed_iters
+                             or bool((active & (p < p_end - ftol)).any())):
         act = active & (p < p_end - ftol)
 
         # ---- ceilings at t: value/slope/next-break from ONE piece lookup ---
@@ -673,6 +718,9 @@ def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
                                       torch.where(pb_fin, p[None] - pb, 1.0))
                 upb = torch.where(pb_fin, upb, _INF)
             else:
+                # pb is masked to 0 BEFORE the divide: an inf numerator in an
+                # unselected lane would still poison the gradient (the
+                # divide's backward meets a zero gradient: 0 * inf = nan)
                 pbs = torch.where(pb_fin, pb, 0.0)
                 upb = torch.where((slope[None] > 0) & pb_fin,
                                   (pbs - p[None]) / torch.where(
@@ -685,8 +733,7 @@ def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
             # decelerating ceiling re-meets slower progress), so only
             # data-limited rows are exempt; the gap clamps to <= 0 so float
             # noise above the ceiling cannot schedule a bogus crossing
-            ucatch = _first_pos_root(qmov - pdq, slope - pdslope,
-                                     (p - pd).clamp_max(0.0))
+            ucatch = _catch_up(qmov - pdq, slope - pdslope, p - pd)
             ucatch = torch.where(~data_lim, ucatch, _INF)
         else:
             ucatch = torch.where(
@@ -746,18 +793,23 @@ def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
         p = torch.where(adv, torch.maximum(p, p_new), p)
         t = torch.where(adv, t_safe, t)
 
-        # the iteration's record slots, written in place into the
-        # preallocated (nbuf, Lp, B, R) buffer
+        # the iteration's record slots, stacked once after the loop (no
+        # in-place writes into a buffer autograd tracks)
         if has_jumps:
-            rec[..., spi * it] = torch.stack(rec0)
-        rec[..., spi * it + spi - 1] = torch.stack(rec1)
+            slots.append(torch.stack(rec0))
+        slots.append(torch.stack(rec1))
         it += 1
 
+    slots += [zeros(nbuf, Lp, B)] * (R - len(slots))   # slots never reached
+    rec = torch.stack(slots, -1)
     late = active & (p >= p_end - ftol) & ~torch.isfinite(finish)
     finish = torch.where(late, t, finish)
-    overflow = bool((active & (p < p_end - ftol)).any())
-    share = _aggregate_shares(rec[0], rec[3].to(torch.int64), rec[4] > 0.5,
-                              finish, nC + Lr, R)
+    overflow = (active & (p < p_end - ftol)).any()
+    if not fixed_iters:
+        overflow = bool(overflow)
+    share = (_aggregate_shares(rec[0], rec[3].to(torch.int64), rec[4] > 0.5,
+                               finish, nC + Lr, R)
+             if need_share else None)
     # progress assembly happens in the runner: levels whose progress feeds
     # no later level join ONE deferred stacked assembly pass at the end
     return {"finish": finish, "rec": rec, "share": share,
@@ -773,6 +825,26 @@ def _suffix_or(m):
     """Suffix cumulative OR along the last axis."""
     return torch.flip(torch.cumsum(torch.flip(m, [-1]).to(torch.int32), -1),
                       [-1]) > 0
+
+
+class _FillGather(torch.autograd.Function):
+    """``torch.gather(a, -1, idx)`` whose backward sums over a one-hot mask
+    instead of scattering.  The progress fill reads one source slot into
+    several slots, and ``gather``'s backward adds those gradients with
+    atomics on a card, in no fixed order; the masked sum keeps a gradient,
+    and so an optimizer run, the same bits from run to run."""
+
+    @staticmethod
+    def forward(ctx, a, idx):
+        ctx.save_for_backward(idx)
+        ctx.width = a.shape[-1]
+        return torch.gather(a, -1, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        hit = idx[..., None] == torch.arange(ctx.width, device=idx.device)
+        return torch.where(hit, grad[..., None], 0.0).sum(-2), None
 
 
 def _assemble_progress(T, C0, C1, M, t0, finish, p_end, R: int, C2=None):
@@ -805,7 +877,7 @@ def _assemble_progress(T, C0, C1, M, t0, finish, p_end, R: int, C2=None):
 
     def grab(a, fill):
         col = torch.full(lead + (1,), fill, dtype=_F64, device=dev)
-        return torch.gather(torch.cat([a, col], -1), -1, nxt)
+        return _FillGather.apply(torch.cat([a, col], -1), nxt)
 
     Sf = grab(S, PAD_START)
     C0f = grab(C0x, 0.0)
@@ -857,6 +929,18 @@ def _aggregate_shares(T, ATTR, M, finish, n_factors: int, R: int):
 # ---------------------------------------------------------------------------
 # whole-workflow runner + engine front end
 # ---------------------------------------------------------------------------
+
+def _inline_progress(ls: _LevelSpec, k: dict, t0, res: dict, ramps: bool,
+                     progress_by: dict) -> None:
+    """Assemble a level's progress right after it (a later level composes
+    its ceilings against it) into ``progress_by``."""
+    rec = res["rec"]
+    prog = _assemble_progress(rec[0], rec[1], rec[2], rec[4] > 0.5, t0,
+                              res["finish"], k["p_end"], rec.shape[-1],
+                              C2=rec[5] if ramps else None)
+    for pi, ps in enumerate(ls.procs):
+        progress_by[ps.name] = tuple(a[pi] for a in prog)
+
 
 def _bcast(fn, B: int):
     return tuple(a.expand(B, a.shape[-1]) for a in fn)
@@ -970,6 +1054,46 @@ class TorchSweepEngine:
         #: ratcheting the budget (and the record-buffer cost) for all shapes
         self._proven_caps: dict = {}
 
+    # -- one level's inputs -------------------------------------------------
+    def _level_inputs(self, ls, la, B: int, arity: int, finish_by: dict,
+                      progress_by: dict):
+        """``(t0, C, IR)`` of one level: start times from the gates' finish
+        times, the ceilings (edge-fed ones composed against upstream
+        progress on the device) and the resource planes, each broadcast to
+        ``(·, Lp, B, P)``."""
+        dev = self.device
+        Lp = len(ls.procs)
+        rows = []
+        for ps in ls.procs:
+            t0p = torch.zeros(B, dtype=_F64, device=dev)
+            for g in ps.gate_names:
+                t0p = torch.maximum(t0p, finish_by[g])
+            rows.append(t0p)
+        t0 = torch.stack(rows)
+        if la["C"] is not None:   # fully static level, pre-stacked
+            C = tuple(a.expand(ls.nC, Lp, B, a.shape[-1]) for a in la["C"])
+        else:
+            per = []
+            for pi, ps in enumerate(ls.procs):
+                cl = []
+                for dep in ps.data_names:
+                    if dep in ps.edges:
+                        src, out_fn = ps.edges[dep]
+                        inner = _compose(out_fn, progress_by[src], B)
+                        cl.append(_compose(ps.reqs[dep], inner, B))
+                    else:
+                        cl.append(_bcast(la["ceil"][f"{pi}.{dep}"], B))
+                if not cl:
+                    cl = [(torch.zeros((B, 1), dtype=_F64, device=dev),
+                           torch.full((B, 1), ps.p_end, dtype=_F64,
+                                      device=dev),
+                           torch.zeros((B, 1), dtype=_F64, device=dev))]
+                per.append(cl)
+            C = _stack_level_ceils(per, ls.nC, B, arity, dev)
+        IR = (tuple(a.expand(ls.Lr, Lp, B, a.shape[-1]) for a in la["IR"])
+              if ls.Lr else None)
+        return t0, C, IR
+
     # -- one sweep at a fixed iteration budget ------------------------------
     def _make_run(self, B: int, iter_cap: int, ramps: bool):
         spec, consts, dev = self.spec, self._consts, self.device
@@ -979,38 +1103,8 @@ class TorchSweepEngine:
             finish_by, progress_by, out = {}, {}, {}
             solved = []                 # (level, t0, result) in level order
             for ls, la, k in zip(spec.levels, largs, consts):
-                Lp = len(ls.procs)
-                rows = []
-                for ps in ls.procs:
-                    t0p = torch.zeros(B, dtype=_F64, device=dev)
-                    for g in ps.gate_names:
-                        t0p = torch.maximum(t0p, finish_by[g])
-                    rows.append(t0p)
-                t0 = torch.stack(rows)
-                if la["C"] is not None:   # fully static level, pre-stacked
-                    C = tuple(a.expand(ls.nC, Lp, B, a.shape[-1])
-                              for a in la["C"])
-                else:
-                    per = []
-                    for pi, ps in enumerate(ls.procs):
-                        cl = []
-                        for dep in ps.data_names:
-                            if dep in ps.edges:
-                                src, out_fn = ps.edges[dep]
-                                inner = _compose(out_fn, progress_by[src], B)
-                                cl.append(_compose(ps.reqs[dep], inner, B))
-                            else:
-                                cl.append(_bcast(la["ceil"][f"{pi}.{dep}"], B))
-                        if not cl:
-                            cl = [(torch.zeros((B, 1), dtype=_F64, device=dev),
-                                   torch.full((B, 1), ps.p_end, dtype=_F64,
-                                              device=dev),
-                                   torch.zeros((B, 1), dtype=_F64, device=dev))]
-                        per.append(cl)
-                    C = _stack_level_ceils(per, ls.nC, B, arity, dev)
-                IR = (tuple(a.expand(ls.Lr, Lp, B, a.shape[-1])
-                            for a in la["IR"])
-                      if ls.Lr else None)
+                t0, C, IR = self._level_inputs(ls, la, B, arity, finish_by,
+                                               progress_by)
                 res = _solve_level(ls, k, C, IR, t0, B, iter_cap, ramps)
                 if res["overflow"]:   # the ladder retries at a larger budget
                     return None
@@ -1018,13 +1112,7 @@ class TorchSweepEngine:
                 for pi, ps in enumerate(ls.procs):
                     finish_by[ps.name] = res["finish"][pi]
                 if ls.progress_inline:  # a later level composes against it
-                    rec = res["rec"]
-                    prog = _assemble_progress(
-                        rec[0], rec[1], rec[2], rec[4] > 0.5, t0,
-                        res["finish"], k["p_end"], rec.shape[-1],
-                        C2=rec[5] if ramps else None)
-                    for pi, ps in enumerate(ls.procs):
-                        progress_by[ps.name] = tuple(a[pi] for a in prog)
+                    _inline_progress(ls, k, t0, res, ramps, progress_by)
 
             # ---- deferred progress: ONE stacked assembly over the levels no
             # later level composes against
@@ -1069,6 +1157,54 @@ class TorchSweepEngine:
                         "iterations": res["iterations"],
                     }
             return out
+
+        return run
+
+    # -- differentiable makespan path ---------------------------------------
+    def make_diff_run(self, B: int, iter_cap: int, ramps: bool,
+                      apply_theta=None):
+        """A makespan that autograd differentiates, through the level-fused
+        event loop — the engine half of ``plan.optimize()``.
+
+        Returns ``run(largs, theta) -> (makespans (B,), overflow ())``, both
+        tensors on the engine's device, built from the same level recursion
+        as :meth:`_make_run` with two changes:
+
+        * every level runs exactly ``iter_cap`` bodies (``fixed_iters`` in
+          :func:`_solve_level`), reading nothing back, and skips the share
+          aggregation the makespan never reads;
+        * ``apply_theta(IR, level_index, theta)`` rescales or rebuilds the
+          level's resource planes from the ``(B, K)`` ``theta`` batch (see
+          :class:`repro_torch.analysis.pack.ThetaMap`), so every candidate
+          and its gradient ride one ``(B,)`` sweep with no host re-packing.
+
+        At generic ``theta`` the event order is locally constant and every
+        event time is a closed form, so the gradient is the one central
+        finite differences measure away from event-reorder points.
+        ``overflow`` tells the caller to climb the iteration ladder (a
+        doubled ``iter_cap``, up to :data:`MAX_ITER_CAP`).
+        """
+        spec, consts = self.spec, self._consts
+        arity = 4 if ramps else 3
+
+        def run(largs, theta):
+            finish_by, progress_by = {}, {}
+            overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+            makespan = torch.zeros(B, dtype=_F64, device=self.device)
+            for li, (ls, la, k) in enumerate(zip(spec.levels, largs, consts)):
+                t0, C, IR = self._level_inputs(ls, la, B, arity, finish_by,
+                                               progress_by)
+                if IR is not None and apply_theta is not None:
+                    IR = apply_theta(IR, li, theta)
+                res = _solve_level(ls, k, C, IR, t0, B, iter_cap, ramps,
+                                   fixed_iters=True, need_share=False)
+                overflow = overflow | res["overflow"]
+                for pi, ps in enumerate(ls.procs):
+                    finish_by[ps.name] = res["finish"][pi]
+                makespan = torch.maximum(makespan, res["finish"].amax(0))
+                if ls.progress_inline:  # a later level composes against it
+                    _inline_progress(ls, k, t0, res, ramps, progress_by)
+            return makespan, overflow
 
         return run
 

@@ -52,6 +52,27 @@ print("LOADED", bad)
     assert "LOADED []" in out.stdout, out.stdout
 
 
+def test_cpu_optimize_and_mc_load_neither_jax_nor_repro():
+    code = """
+import sys
+from repro_torch.analysis import cap_space
+from repro_torch.configs.paper_workflow import compile_paper_plan, mc_spec
+plan = compile_paper_plan(0.5, device="cpu")
+opt = plan.optimize(space=cap_space(["task1.cpu"], lo=0.5, hi=2.0),
+                    max_iters=2)
+mc = plan.mc(mc_spec(), n=64, seed=0)
+assert opt.evals > 0 and mc.n == 64 and set(mc.report.backends) == {"torch"}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def test_default_device_is_the_card(monkeypatch):
     from repro_torch.analysis import compile_workflow
     from repro_torch.configs.paper_workflow import build_workflow
