@@ -11,8 +11,10 @@ the language-model serving path (prefill through the flash kernel, cached
 decode through the serving launcher) at yi-9b's full width, and RWKV-6
 serving (prefill and cached decode, every layer's wkv through the wkv6
 kernel) at rwkv6-1.6b's full width — checks the results, and times the
-kernels.  Every phase prints one JSON line; any failure raises and ends the
-run with a non-zero exit.  The last line is ``{"ok": true, "device": {...}}``.
+kernels, and the analysis service (``repro_torch.analysis.serve``: the
+launcher, coalescing at B = 10,000, the fault plan, the durable store and
+the journal, Monte Carlo through the worker).  Every phase prints one JSON
+line; any failure raises and ends the run with a non-zero exit.  The last line is ``{"ok": true, "device": {...}}``.
 
 Phases: env, build, kernels (random ragged shapes, T = 1 to 4097 and a q
 that is not 16-byte aligned; each kernel on every route that takes the
@@ -37,7 +39,23 @@ central differences, linear and ramped, each the same bits twice),
 mc_b10k (``plan.mc(mc_spec(), n=10_000, seed=0)`` against the reference's
 quantiles and dominant factors and the numpy twin; its steps timed),
 optimize_mc (the p95 search over 256 draws twice, bit for bit),
-lm_prefill (yi-9b, bf16, B = 2, S = 4096; every flash call on the
+service_load (``repro_torch.launch.analyze.main([])`` on the card: 32
+clients x 4 queries, 6 online steps, 2,048 draws; latency p50/p99,
+requests/s, sweeps against requests, the plan cache's counters),
+service_b10k (the b10k_ramped set through one service by 40 client
+threads of 250 rows, max_batch 4096: every client's rows equal to
+``plan.sweep``'s at B = 10,000 bit for bit; then sample_progress,
+data_ceiling and kernel_finish_times at T = 1024 on a coalesced client's
+Report, each equal bit for bit to the same rows of ``plan.sweep``'s Report,
+each kernel call held against its plain version, the "vec"/"row" launches
+counted around the queries), service_faults (NaN rows degraded to the
+numpy twin's rows, a killed worker restarted, a failed sweep retried, a
+malformed request failing alone, a 0.02 s deadline behind a 0.25 s delay),
+service_durable (a store under build/service_store: a warm start bit for
+bit the cold service, a corrupted artifact rejected with one
+ArtifactWarning and a cold compile, 6 tracked deltas recovered to the live
+digest), service_mc (``submit_mc(mc_spec(), n=10_000, seed=0)`` against
+``plan.mc``: quantiles bit for bit), lm_prefill (yi-9b, bf16, B = 2, S = 4096; every flash call on the
 tensor-core kernel),
 lm_serve (``repro_torch.launch.serve``
 with yi-9b, 8 requests; prefill against decode beside the bf16 batch-split
@@ -48,7 +66,8 @@ per-kernel line with launches on each path, errors and times at each
 path's shapes (also with the L2 flushed between launches, the "tile"
 route on the same inputs, and ptxas registers and spills; for the crossing
 the launch floor).  The launch counts are
-set to 0 just before each path is driven and read just after it.
+set to 0 just before each path is driven and read just after it; the
+ppoly rows carry each path's counts in ``launches_by_path``.
 
 Imports nothing of JAX or of the reference package.  Exits with code 2 and
 prints no result when no CUDA device is present or when the port's sources
@@ -1336,6 +1355,370 @@ def phase_optimize_mc(paper):
          value_grad_B=obj.n, value_grad_s=grad_s)
 
 
+# ------------------------------------------------- the analysis service ----
+def same_rows(rep, want, rows, what: str) -> None:
+    """``rep`` equals rows ``rows`` of ``want`` bit for bit: labels,
+    makespans, finish times and shares."""
+    import numpy as np
+
+    check(rep.labels == [want.labels[i] for i in rows], f"{what}: labels")
+    np.testing.assert_array_equal(rep.makespans, want.makespans[rows],
+                                  err_msg=f"{what}: makespans")
+    for pn in rep.order:
+        np.testing.assert_array_equal(rep.finish[pn], want.finish[pn][rows],
+                                      err_msg=f"{what}: finish {pn}")
+    check(rep.factors == want.factors, f"{what}: factors")
+    np.testing.assert_array_equal(rep.share_seconds, want.share_seconds[rows],
+                                  err_msg=f"{what}: shares")
+
+
+def phase_service_load():
+    """``repro_torch.launch.analyze.main([])`` on the card: the launcher's
+    defaults (32 clients x 4 queries, 6 online steps, --mc with 2,048
+    draws)."""
+    import numpy as np
+    from repro_torch.launch import analyze
+
+    wall, out = host_s(lambda: analyze.main([]))
+    load, snap = out["load"], out["snapshot"]
+    check(out["device"].startswith("cuda"), f"service on {out['device']}")
+    check(load["served"] == load["clients"] * load["queries"] == 128,
+          f"served {load['served']} of 128")
+    check(out["online"]["updates"] == 7 and
+          np.all(np.isfinite(out["online"]["makespans"])),
+          f"online: {out['online']}")
+    check(out["mc"]["fallbacks"] == 0 and
+          all(np.isfinite(v) for v in out["mc"]["quantiles"].values()),
+          f"mc: {out['mc']}")
+    check(snap["restarts"] == snap["degraded"] == snap["shed"] == 0,
+          f"faults without a fault plan: {snap}")
+    emit("service_load", wall_s=wall, latency_p50_s=load["latency_p50_s"],
+         latency_p99_s=load["latency_p99_s"],
+         requests_per_s=load["requests_per_s"], load_wall_s=load["wall_s"],
+         load_sweeps=load["sweeps"], load_requests=load["served"],
+         coalesced_batches=load["coalesced_batches"],
+         max_coalesced=load["max_coalesced"],
+         sweeps=snap["sweeps"], requests=snap["requests"],
+         plan_hits=snap["plan_hits"], plan_misses=snap["plan_misses"],
+         trace_hits=snap["trace_hits"], cold_solves=snap["cold_traces"],
+         online=out["online"], mc=out["mc"])
+
+
+SVC_CLIENTS, SVC_ROWS, SVC_MAX_BATCH = 40, 250, 4096
+
+
+def phase_service_b10k(paper, scenarios):
+    """The B = 10,000 ramped set pushed through one service by 40 client
+    threads of 250 rows each (max_batch 4096): every client's rows equal
+    ``plan.sweep``'s at B = 10,000 bit for bit; then the three curve
+    queries at T = 1024 on a coalesced client's Report, each equal bit for
+    bit to the same call's rows on ``plan.sweep``'s Report and each kernel
+    call held against its plain version.  Returns the launch counts of the
+    coalesced Report's queries (the calls on ``plan.sweep``'s Report that
+    they are compared with are not counted)."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.analysis import AnalysisService
+    from repro_torch.kernels.ppoly_eval import kernel
+
+    scs = ramped_scenarios(paper, scenarios, SVC_CLIENTS * SVC_ROWS)
+    reps, lat, errors = {}, {}, []
+    barrier = threading.Barrier(SVC_CLIENTS)
+    with AnalysisService(max_batch=SVC_MAX_BATCH) as svc:
+        plan = svc.compile(paper.build_workflow(0.5))
+        check(plan.device.type == "cuda", f"plan on {plan.device}")
+
+        def client(ci: int) -> None:
+            try:
+                barrier.wait(timeout=120)
+                t0 = time.perf_counter()
+                reps[ci] = svc.query(scs[ci * SVC_ROWS:(ci + 1) * SVC_ROWS],
+                                     plan=plan, timeout=600)
+                lat[ci] = time.perf_counter() - t0
+            except BaseException as e:  # noqa: BLE001
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SVC_CLIENTS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = svc.snapshot()
+    check(not errors and len(reps) == SVC_CLIENTS, f"clients failed: {errors[:3]}")
+    full_s, full = host_s(lambda: plan.sweep(plan.prepare(scs), backend="torch"))
+    check_torch_report(full, "service_b10k plan.sweep")
+    for ci, rep in reps.items():
+        check(set(rep.backends) == {"torch"}, f"client {ci}: {set(rep.backends)}")
+        same_rows(rep, full, list(range(ci * SVC_ROWS, (ci + 1) * SVC_ROWS)),
+                  f"service_b10k client {ci}")
+    # the curve queries on a coalesced client's Report (the last client:
+    # seeded ramps), counted and held against the plain versions
+    ci = SVC_CLIENTS - 1
+    rows = list(range(ci * SVC_ROWS, (ci + 1) * SVC_ROWS))
+    rep = reps[ci]
+    ts = np.linspace(0.0, float(np.max(full.makespans)) * 1.05, T_QUERIES)
+    pn = rep.order[-1]
+    want = {call: query_fn(full, call, pn, ts)() for call in QUERY_OPS}
+    torch.cuda.synchronize()
+    before = read_launches()
+    with Recorder(kernel, KERNELS) as rec:
+        q_s = {call: host_s(query_fn(rep, call, pn, ts))
+               for call in QUERY_OPS}
+        torch.cuda.synchronize()
+        launches = {k: n - before[k] for k, n in read_launches().items()}
+    check(same_result(q_s["sample_progress"][1],
+                      want["sample_progress"][rows]), "sample_progress rows")
+    vals, arg = q_s["data_ceiling"][1]
+    check(same_result((vals, arg), (want["data_ceiling"][0][rows],
+                                    want["data_ceiling"][1][rows])),
+          "data_ceiling rows")
+    check(same_result(q_s["kernel_finish_times"][1],
+                      want["kernel_finish_times"][rows]),
+          "kernel_finish_times rows")
+    errs = {n: 0.0 for n in KERNELS}
+    for name, args, out in rec.calls:
+        errs[name] = max(errs[name], hold_against_plain(name, args, out))
+    for key in ("ppoly_eval_vec", "ppoly_min_eval_vec", "ppoly_first_crossing_row"):
+        check(launches[key] > 0, f"{key} never launched on the service path")
+    lat_s = np.sort(list(lat.values()))
+    emit("service_b10k", B=len(scs), clients=SVC_CLIENTS, rows=SVC_ROWS,
+         max_batch=SVC_MAX_BATCH, wall_s=wall, plan_sweep_s=full_s,
+         latency_p50_s=float(np.quantile(lat_s, 0.5)),
+         latency_p99_s=float(np.quantile(lat_s, 0.99)),
+         requests_per_s=SVC_CLIENTS / wall, sweeps=snap["sweeps"],
+         coalesced_batches=snap["coalesced_batches"],
+         max_coalesced=snap["max_coalesced"], max_batch_B=snap["max_batch_B"],
+         bitwise_vs_plan_sweep=True, query_proc=pn, query_T=T_QUERIES,
+         query_s={call: s for call, (s, _o) in q_s.items()},
+         launches=launches, max_abs_err=errs,
+         iter_caps=plan._torch_engine.proven_caps_rows(),
+         worker_split=worker_split(plan, scs))
+    return launches
+
+
+def worker_split(plan, scs) -> dict:
+    """The worker's steps for one coalesced chunk (16 requests of 250
+    rows, padded to 4,096 as the service pads it), each timed apart on the
+    host clock ending in a synchronize: ``prepare``; the whole
+    ``plan.sweep`` of the pack (which proves the chunk's iteration cap when
+    the service's drains cut other chunks); its parts at that cap: the
+    levels' inputs to the device, the engine's level loops (driven from the
+    host), the copy back and host assembly of the results (``_wrap``); the
+    16 clients' row slices."""
+    from repro_torch.analysis import serve
+
+    rows = min(SVC_MAX_BATCH // SVC_ROWS * SVC_ROWS, len(scs))
+    chunk = scs[:rows] + [scs[rows - 1]] * (
+        min(serve._pow2_bucket(rows), SVC_MAX_BATCH) - rows)
+    eng = plan._torch_engine
+    prepare_s, pack = host_s(lambda: plan.prepare(chunk))
+    B, ramps = pack.B_batched, pack.ramps
+    sweep_s, rep = host_s(lambda: plan.sweep(pack, backend="torch"))
+    to_device_s, dev = host_s(
+        lambda: eng.device_args(eng.level_args(pack.host_args(), B, ramps)))
+    cap = eng._proven_caps[(B, 1, ramps)]
+    loops_s, out = host_s(lambda: eng._make_run(B, cap, ramps)(dev))
+    check(out is not None, "the proven cap overflowed")
+    copy_back_s, _res = host_s(lambda: eng._wrap(out, B, pack.bat_idx))
+    slice_s, _sub = host_s(lambda: [serve._client_rows(rep, lo, lo + SVC_ROWS)
+                                    for lo in range(0, rows, SVC_ROWS)])
+    return {"B": B, "iter_cap": cap, "prepare_s": prepare_s,
+            "to_device_s": to_device_s, "level_loops_s": loops_s,
+            "copy_back_s": copy_back_s, "plan_sweep_s": sweep_s,
+            "slice_s": slice_s}
+
+
+def phase_service_faults(paper):
+    """Each FaultPlan case on the card: NaN rows degraded to the numpy twin,
+    a killed worker restarted, a failed sweep retried, a malformed request
+    failing alone, a deadline behind a delayed drain."""
+    import warnings
+
+    import numpy as np
+    from repro_torch.analysis import (AnalysisService, DeadlineExceeded,
+                                      FaultInjected, FaultPlan, ServiceCrashed)
+
+    plan = paper.compile_paper_plan(0.5)
+    scs = paper.sweep_scenarios([0.3, 0.5, 0.7, 0.9])
+    want = plan.sweep(plan.prepare(scs), backend="torch")
+    out = {}
+
+    def timed(name, fn):
+        out[name] = {"s": host_s(fn)[0]}
+
+    def nan_rows():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with AnalysisService(faults=FaultPlan(nan_rows=[1, 3])) as svc:
+                rep = svc.query(scs, plan=plan, timeout=120)
+                snap = svc.snapshot()
+        check(rep.backends == ["torch", "degraded", "torch", "degraded"],
+              f"nan_rows: backends {rep.backends}")
+        twin = plan.sweep(plan.prepare([scs[1], scs[3]]), backend="numpy")
+        same_rows(rep.subset([1, 3]), twin, [0, 1], "nan_rows degraded rows")
+        same_rows(rep.subset([0, 2]), want, [0, 2], "nan_rows healthy rows")
+        check(snap["degraded"] == 2 and sum(
+            "degraded to the numpy" in str(w.message) for w in caught) == 1,
+            f"nan_rows: {snap['degraded']} degraded")
+
+    def kill_worker():
+        with AnalysisService(autostart=False,
+                             faults=FaultPlan(kill_worker_at=1)) as svc:
+            doomed = svc.submit(scs, plan=plan)
+            svc.start()
+            try:
+                doomed.result(timeout=120)
+                check(False, "kill_worker: the doomed request was served")
+            except ServiceCrashed as e:
+                check(isinstance(e.cause, FaultInjected), f"cause {e.cause!r}")
+            rep = svc.query(scs, plan=plan, timeout=120)
+            check(svc.snapshot()["restarts"] == 1, "kill_worker: no restart")
+        same_rows(rep, want, [0, 1, 2, 3], "kill_worker restarted")
+
+    def fail_sweep():
+        with AnalysisService(faults=FaultPlan(fail_sweep=1),
+                             retry_backoff_s=1e-4) as svc:
+            rep = svc.query(scs, plan=plan, timeout=120)
+            check(svc.snapshot()["retries"] >= 1, "fail_sweep: no retry")
+        same_rows(rep, want, [0, 1, 2, 3], "fail_sweep retried")
+
+    def malformed():
+        with AnalysisService(autostart=False, retry_backoff_s=1e-4,
+                             faults=FaultPlan(malformed_request=1)) as svc:
+            poisoned = svc.submit(scs, plan=plan)
+            neighbor = svc.submit(scs, plan=plan)
+            svc.start()
+            try:
+                poisoned.result(timeout=120)
+                check(False, "malformed: the poisoned request was served")
+            except ValueError:
+                pass
+            rep = neighbor.result(timeout=120)
+        same_rows(rep, want, [0, 1, 2, 3], "malformed neighbor")
+
+    def deadline():
+        with AnalysisService(autostart=False,
+                             faults=FaultPlan(delay_s=0.25)) as svc:
+            doomed = svc.submit(scs, plan=plan, deadline_s=0.02)
+            patient = svc.submit(scs, plan=plan)
+            svc.start()
+            try:
+                doomed.result(timeout=120)
+                check(False, "deadline: the expired request was served")
+            except DeadlineExceeded:
+                pass
+            rep = patient.result(timeout=120)
+            check(svc.snapshot()["deadline_expired"] == 1, "deadline: count")
+        same_rows(rep, want, [0, 1, 2, 3], "deadline neighbor")
+
+    for name, fn in (("nan_rows", nan_rows), ("kill_worker", kill_worker),
+                     ("fail_sweep", fail_sweep), ("malformed", malformed),
+                     ("deadline", deadline)):
+        timed(name, fn)
+    check(np.all(np.isfinite(want.makespans)), "service_faults reference")
+    emit("service_faults", cases=out)
+
+
+def phase_service_durable(paper):
+    """A store in a fresh directory under build/: a swept plan persisted and
+    a new service warm-started from it (the warm sweep bit for bit the cold
+    one); a corrupted artifact rejected with one ArtifactWarning and a cold
+    compile; a tracked session of 6 deltas recovered to its digest."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    from repro_torch.analysis import (AnalysisService, ArtifactStore,
+                                      ArtifactWarning, FaultPlan)
+
+    root = ROOT / "build" / "service_store"
+    shutil.rmtree(root, ignore_errors=True)
+    wf = paper.build_workflow(0.5)
+    scs = paper.sweep_scenarios(np.linspace(0.02, 0.98, 64))
+    out = {}
+    t0 = time.perf_counter()
+    with AnalysisService(wf, store=root / "a") as cold:
+        cold_s, rep_cold = host_s(lambda: cold.query(scs, timeout=120))
+        snap_c = cold.snapshot()
+    check(snap_c["artifacts_written"] >= 1 and snap_c["warm_plans"] == 0,
+          f"cold service: {snap_c}")
+    warm_start_s, warm = host_s(lambda: AnalysisService(wf, store=root / "a"))
+    with warm:
+        warm_s, rep_warm = host_s(lambda: warm.query(scs, timeout=120))
+        snap_w = warm.snapshot()
+    check(snap_w["warm_plans"] >= 1 and snap_w["warm_hits"] >= 1
+          and snap_w["cold_traces"] == 0, f"warm service: {snap_w}")
+    same_rows(rep_warm, rep_cold, list(range(len(scs))), "warm against cold")
+    out.update(cold_query_s=cold_s, warm_start_s=warm_start_s,
+               warm_query_s=warm_s, warm_plans=snap_w["warm_plans"],
+               warm_hits=snap_w["warm_hits"], cold_solves=snap_w["cold_traces"],
+               artifact_bytes=ArtifactStore(root / "a").scan()[0].stat().st_size)
+
+    store = ArtifactStore(root / "b", faults=FaultPlan(corrupt_artifact=1))
+    store.put(warm._default_plan)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with AnalysisService(wf, store=store) as bad:
+            rep_bad = bad.query(scs, timeout=120)
+            snap_b = bad.snapshot()
+    art = [w for w in caught if issubclass(w.category, ArtifactWarning)]
+    check(len(art) == 1 and snap_b["artifact_errors"] == 1
+          and snap_b["warm_plans"] == 0 and snap_b["plan_misses"] == 1,
+          f"corrupt artifact: {len(art)} warnings, {snap_b}")
+    same_rows(rep_bad, rep_cold, list(range(len(scs))), "cold after corrupt")
+
+    with AnalysisService(wf, store=root / "a") as svc:
+        live = svc.track(paper.sweep_scenarios([0.5]), track_id="chip")
+        for k in range(6):
+            live.ingest({"dl1.link": np.float64(0.9 - 0.1 * k)}, timeout=120)
+        digest = live.pack.state_digest()
+        live.close()
+    recover_s, rec = host_s(lambda: AnalysisService(store=root / "a"))
+    with rec:
+        rs, back = host_s(lambda: rec.recover("chip"))
+        check(back.pack.state_digest() == digest and back.updates == 6,
+              f"recover: {back.updates} deltas, digest equal "
+              f"{back.pack.state_digest() == digest}")
+        rep_back = back.refresh()
+        back.close()
+    check(rep_back.makespans.tobytes() == live.report.makespans.tobytes(),
+          "recovered session sweeps to another makespan")
+    out.update(recover_s=rs, tracked_deltas=6, digest_equal=True,
+               wall_s=time.perf_counter() - t0)
+    emit("service_durable", **out)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_service_mc(paper):
+    """``submit_mc(mc_spec(), n=10_000, seed=0)`` against ``plan.mc`` with
+    the same arguments: quantiles bit for bit."""
+    from repro_torch.analysis import AnalysisService
+
+    with AnalysisService() as svc:
+        plan = svc.compile(paper.build_workflow(0.5))
+        svc_s, mc = host_s(lambda: svc.submit_mc(
+            paper.mc_spec(), n=MC_N, seed=0, plan=plan).result(timeout=600))
+        snap = svc.snapshot()
+    plan_s, want = host_s(lambda: plan.mc(paper.mc_spec(), n=MC_N, seed=0))
+    check(mc.quantiles() == want.quantiles(),
+          f"quantiles {mc.quantiles()} against plan.mc {want.quantiles()}")
+    check(mc.makespans.tobytes() == want.makespans.tobytes(),
+          "makespans differ from plan.mc's")
+    for k, ref in REF_MC_QUANTILES.items():
+        check(abs(mc.quantiles()[k] - ref) <= 1e-5 * ref,
+              f"{k} {mc.quantiles()[k]}, reference {ref}")
+    emit("service_mc", n=MC_N, quantiles=mc.quantiles(), service_s=svc_s,
+         plan_mc_s=plan_s, sweeps=snap["sweeps"],
+         max_batch_B=snap["max_batch_B"], bitwise_vs_plan_mc=True)
+
+
 #: each curve query of the Report: its op and the tables it reads
 QUERY_OPS = {"sample_progress": ("ppoly_eval", "progress"),
              "data_ceiling": ("ppoly_min_eval", "ceilings"),
@@ -1708,6 +2091,25 @@ def main() -> int:
     phase_optimize_mc(paper)
     torch.cuda.synchronize()
     emit("optimize_and_mc_launches", launches=read_launches())
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the analysis service: each phase counted from 0 ----
+    service = {}
+    for name, run in (("service_load", phase_service_load),
+                      ("service_b10k", lambda: phase_service_b10k(paper, scenarios)),
+                      ("service_faults", lambda: phase_service_faults(paper)),
+                      ("service_durable", lambda: phase_service_durable(paper)),
+                      ("service_mc", lambda: phase_service_mc(paper))):
+        reset_launches()
+        counts = run()
+        torch.cuda.synchronize()
+        counts = read_launches() if counts is None else counts
+        service[name] = {k: n for k, n in counts.items() if n}
+    emit("service_launches", launches=service)
+    for row in rows:
+        row["launches_by_path"] = {"analysis": row["launches"], **{
+            name: counts.get(row["name"], 0) for name, counts in service.items()}}
     gc.collect()
     torch.cuda.empty_cache()
 

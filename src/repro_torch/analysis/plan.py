@@ -153,6 +153,49 @@ class CompiledWorkflow:
         self._base_report: Report | None = None
         self._bottleneck_fn: BottleneckFn | None = None
         self._torch_engine: TorchSweepEngine | None = None  # built lazily
+        self._level_sig: tuple | None = None
+
+    # ------------------------------------------------------------------
+    @property
+    def level_signature(self) -> tuple:
+        """Hashable fingerprint of what the fused engine specializes on.
+
+        Covers exactly what :class:`repro_torch.sweep.torch_engine._WorkflowSpec`
+        bakes into the engine — the topology levels and, per process, its
+        name, total progress, gates, edge sources with their output
+        functions, requirement functions, and resource-requirement tables.
+        Two plans with equal signatures build identical engines, so a
+        serving tier (:mod:`repro_torch.analysis.serve`) shares ONE
+        ``TorchSweepEngine`` — and thereby its proven iteration caps —
+        across them; base *input* functions are deliberately excluded (they
+        arrive per pack)."""
+        if self._level_sig is None:
+            wf = self.workflow
+
+            def fp(fn: PPoly) -> tuple:
+                return (fn.starts.tobytes(), fn.coeffs.shape,
+                        fn.coeffs.tobytes())
+
+            sig = []
+            for level in self.levels:
+                lsig = []
+                for n in level:
+                    proc = wf.processes[n]
+                    edges = tuple(
+                        (dep, src, out, fp(wf.processes[src].outputs[out]))
+                        for (src, out, dep) in self.edges_in[n])
+                    reqs = tuple((d, fp(dd.requirement))
+                                 for d, dd in proc.data.items())
+                    tables = tuple(
+                        (lab, rb.tobytes(), rc1.tobytes(), jumps.tobytes())
+                        for (lab, rb, rc1, jumps) in self.res_tables[n])
+                    lsig.append((n, float(proc.total_progress),
+                                 tuple(proc.data.keys()),
+                                 tuple(self.gates.get(n, [])),
+                                 edges, reqs, tables))
+                sig.append(tuple(lsig))
+            self._level_sig = tuple(sig)
+        return self._level_sig
 
     # ------------------------------------------------------------------
     # scalar path
@@ -346,6 +389,21 @@ class CompiledWorkflow:
                       shards=shards,
                       quantile_levels=(DEFAULT_QUANTILES if quantile_levels
                                        is None else quantile_levels))
+
+    def export(self, path: Any) -> Any:
+        """Serialize this plan into a self-contained durable artifact.
+
+        The artifact bundles the snapshotted workflow (as ``(starts,
+        coeffs)`` arrays) with the engine's proven iteration caps under an
+        integrity-checked manifest; ``analysis.load_plan(path)`` rehydrates
+        it in a later process, whose warm sweeps start at the proven caps
+        and are bit-identical to a fresh ``compile()``.  Export a plan
+        *after* sweeping the shapes you want warm.  See
+        :mod:`repro_torch.analysis.artifacts` for the layout.
+        """
+        from .artifacts import export_plan
+
+        return export_plan(self, path)
 
     def optimize(self, objective: Any = "makespan", space: Any = None, *,
                  constraints: Any = None, starts: int = 1, rungs: int = 8,

@@ -1053,6 +1053,13 @@ class TorchSweepEngine:
         #: re-sweeps skip the overflow ladder without one deep workload
         #: ratcheting the budget (and the record-buffer cost) for all shapes
         self._proven_caps: dict = {}
+        #: keys of ``_proven_caps`` installed from an artifact's manifest
+        self._adopted: set = set()
+        #: solves whose iteration cap came from an adopted row
+        self.warm_hits = 0
+        #: every other solve: its cap was the default or one this process
+        #: proved itself
+        self.cold_solves = 0
 
     # -- one level's inputs -------------------------------------------------
     def _level_inputs(self, ls, la, B: int, arity: int, finish_by: dict,
@@ -1300,6 +1307,10 @@ class TorchSweepEngine:
             if cache is not None:
                 cache[key] = dev_args
         pkey = (B, 1, ramps)
+        if pkey in self._adopted:
+            self.warm_hits += 1
+        else:
+            self.cold_solves += 1
         first = pkey not in self._proven_caps
         cap = self._proven_caps.get(pkey, self.iter_cap)
         while True:
@@ -1327,6 +1338,16 @@ class TorchSweepEngine:
         """Proven iteration budgets as rows (B, shards, ramps, cap)."""
         return [(int(B), int(sh), bool(r), int(cap))
                 for (B, sh, r), cap in sorted(self._proven_caps.items())]
+
+    def adopt_proven_caps(self, rows) -> None:
+        """Install manifest cap rows so warm solves start at the proven
+        budget (``first=False``: no second down-ratchet).  A cap this
+        process already proved is kept."""
+        for B, sh, r, cap in rows:
+            key = (int(B), int(sh), bool(r))
+            if key not in self._proven_caps:
+                self._proven_caps[key] = int(cap)
+                self._adopted.add(key)
 
     def _wrap(self, out, B: int, scenario_ids: list[int] | None = None,
               ) -> dict[str, BatchProcResult]:

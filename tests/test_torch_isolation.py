@@ -89,6 +89,52 @@ def test_default_device_is_the_card(monkeypatch):
     assert compile_workflow(wf, device="cpu").device == torch.device("cpu")
 
 
+def test_cpu_service_and_analyze_launcher_load_neither_jax_nor_repro(tmp_path):
+    code = """
+import sys
+import numpy as np
+from repro_torch.analysis import AnalysisService
+from repro_torch.configs.paper_workflow import build_workflow, sweep_scenarios
+from repro_torch.launch import analyze
+with AnalysisService(build_workflow(0.5), device="cpu", store="store") as svc:
+    rep = svc.query(sweep_scenarios([0.3, 0.7]), timeout=120)
+    assert rep.backends == ["torch", "torch"]
+    live = svc.track(sweep_scenarios([0.5]), track_id="t")
+    live.ingest({"dl1.link": np.float64(0.5)}, timeout=120)
+    live.close()
+out = analyze.main(["--device", "cpu", "--clients", "4", "--queries", "2",
+                    "--mc-draws", "64"])
+assert out["load"]["served"] == 8 and out["mc"]["draws"] == 64
+from repro_torch.kernels.ppoly_eval import kernel
+assert kernel._lib is None, "a CPU run built the CUDA kernels"
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_service_default_device_is_the_card(monkeypatch):
+    from repro_torch.analysis import AnalysisService
+    from repro_torch.configs.paper_workflow import build_workflow
+    from repro_torch.launch import analyze
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AnalysisService()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AnalysisService(build_workflow(0.5), autostart=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        analyze.main(["--clients", "1", "--queries", "1", "--no-mc"])
+    with AnalysisService(autostart=False, device="cpu") as svc:
+        assert svc.device == torch.device("cpu")
+        assert svc.compile(build_workflow(0.5)).device == torch.device("cpu")
+
+
 def test_kernel_sources_and_build_dir():
     from repro_torch.kernels.ppoly_eval import kernel
 
