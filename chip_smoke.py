@@ -10,8 +10,9 @@ compile -> prepare -> fused sweep -> Report with the Report's curve queries,
 the language-model serving path (prefill through the flash kernel, cached
 decode through the serving launcher) at yi-9b's full width, and RWKV-6
 serving (prefill and cached decode, every layer's wkv through the wkv6
-kernel) at rwkv6-1.6b's full width — checks the results, and times the
-kernels, and the analysis service (``repro_torch.analysis.serve``: the
+kernel) at rwkv6-1.6b's full width, and the MoE and hybrid families
+(qwen3-moe-235b-a22b and jamba-v0.1-52b at full width, cut in depth) —
+checks the results, and times the kernels, and the analysis service (``repro_torch.analysis.serve``: the
 launcher, coalescing at B = 10,000, the fault plan, the durable store and
 the journal, Monte Carlo through the worker).  Every phase prints one JSON
 line; any failure raises and ends the run with a non-zero exit.  The last line is ``{"ok": true, "device": {...}}``.
@@ -55,19 +56,41 @@ service_durable (a store under build/service_store: a warm start bit for
 bit the cold service, a corrupted artifact rejected with one
 ArtifactWarning and a cold compile, 6 tracked deltas recovered to the live
 digest), service_mc (``submit_mc(mc_spec(), n=10_000, seed=0)`` against
-``plan.mc``: quantiles bit for bit), lm_prefill (yi-9b, bf16, B = 2, S = 4096; every flash call on the
+``plan.mc``: quantiles bit for bit), des_vs_model (the Fig. 7 sweep on
+the card against the DES at every 20th fraction, both recipes' mean
+relative error; the DES's exact makespans and event counts at 0.5 and
+0.95; the refined recipe within 0.2 % of the DES at 0.5, 0.75, 0.95, the
+paper recipe above it and within 15 % at 0.5; §6's runtimes: the model at
+1.1 GB and 90x, the DES at 1.1 GB and 10x), shared_link
+(``sequential_allocation`` of the paper's two downloads at three
+fractions: dl2 done when the link moved both files, usage never above the
+capacity, the allocated workflow swept on the card to the same finishes),
+trace_report (``trace_report`` for the fig7 and b10k_ramped packs on the
+card and on the CPU: one loop per level, the same counts twice; the device
+events of one warm sweep under torch.profiler), sweep_shim (the deprecated
+``repro_torch.sweep.analyze`` warns and equals ``plan.sweep`` bit for
+bit), lm_prefill (yi-9b, bf16, B = 2, S = 4096; every flash call on the
 tensor-core kernel),
 lm_serve (``repro_torch.launch.serve``
 with yi-9b, 8 requests; prefill against decode beside the bf16 batch-split
 floor), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096; every wkv6
 call on the chunked route), lm_serve_rwkv (the launcher with rwkv6-1.6b, 8
-requests; every wkv6 call on the serial route), then the
+requests; every wkv6 call on the serial route), lm_prefill_moe and
+lm_serve_moe (qwen3-moe-235b-a22b, 2 of 94 layers: two flash calls at GQA
+group 16, each held against the plain version; the launcher's 8 requests;
+then a float32 prefill against a token-by-token decode at B = 2, 32
+tokens, capacity drops off, at the reference's max abs 2e-2),
+lm_prefill_jamba and lm_serve_jamba (jamba-v0.1-52b, 8 of 32 layers: one
+period, 7 Mamba layers, attention at position 4 with one flash call at
+GQA group 4, 4 MoE layers; the same checks), then the
 per-kernel line with launches on each path, errors and times at each
 path's shapes (also with the L2 flushed between launches, the "tile"
 route on the same inputs, and ptxas registers and spills; for the crossing
 the launch floor).  The launch counts are
 set to 0 just before each path is driven and read just after it; the
-ppoly rows carry each path's counts in ``launches_by_path``.
+ppoly and flash rows carry each path's counts in ``launches_by_path``;
+the flash row also times the kernel at the MoE and Jamba prefill shapes
+(``by_shape``).
 
 Imports nothing of JAX or of the reference package.  Exits with code 2 and
 prints no result when no CUDA device is present or when the port's sources
@@ -136,6 +159,22 @@ MC_N = 10_000
 FIG7_SPACING = 0.96 / 599           # the Fig. 7 grid's step
 #: gradient cases held against central differences (h = 1e-5) at the
 #: reference's bar: targets, theta, ramped dl1 link
+#: the DES (the "measured system") at every DES_EVERY-th Fig. 7 fraction;
+#: its exact results at two fractions, from the reference package
+#: (``repro.configs.paper_workflow.measure_makespan``) on a CPU: pure Python
+#: on IEEE doubles, the same on any machine
+DES_EVERY = 20
+DES_EXACT = {0.5: (271.64631770623305, 89227), 0.95: (189.64551013362393, 89227)}
+SHARED_FRACS = (0.5, 0.75, 0.93)
+#: the MoE and hybrid families at full width, cut in depth: qwen3-moe's
+#: smallest depth with two MoE layers, jamba's one period (7 Mamba layers,
+#: attention at position 4, 4 MoE layers)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
+JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 8
+#: float32 prefill vs decode: (B, S) and the reference's max abs bar
+#: (tests/test_arch_smoke.py)
+XCHECK_SHAPE = (2, 32)
+XCHECK_TOL = 2e-2
 GRAD_CASES = (("caps", ("task1.cpu", "dl1.link"), (1.31, 0.73), False),
               ("ramped", ("task1.cpu", "task2.cpu"), (1.37, 0.81), True))
 
@@ -1719,6 +1758,360 @@ def phase_service_mc(paper):
          max_batch_B=snap["max_batch_B"], bitwise_vs_plan_mc=True)
 
 
+# ------------------------------------- the rest of the analysis side ----
+def phase_des_vs_model(paper):
+    """The Fig. 7 sweep on the card against the DES (the "measured system")
+    at every 20th fraction, both recipes, as ``benchmarks/run.py``
+    ``bench_fig7_sweep`` computes the mean relative error; the DES's exact
+    results and the model's bars of ``tests/test_paper_workflow.py``; then
+    §6's runtime comparison (model at 1.1 GB and 90x, DES at 1.1 GB and
+    10x)."""
+    import numpy as np
+
+    fracs = np.linspace(0.02, 0.98, 600)
+    plan = paper.compile_paper_plan(0.5)
+    refined = paper.compile_paper_plan(0.5, recipe="refined")
+    rep = plan.sweep(plan.prepare(paper.sweep_scenarios(fracs)), backend="torch")
+    check_torch_report(rep, "des_vs_model")
+    sel = fracs[::DES_EVERY]
+    des_s, des = host_s(lambda: [paper.measure_makespan(f) for f in sel])
+    des_ms = np.array([m for m, _n in des])
+    ref = refined.sweep(refined.prepare(paper.sweep_scenarios(sel)),
+                        backend="torch")
+    check_torch_report(ref, "des_vs_model refined")
+    err_paper = float(np.mean(np.abs(rep.makespans[::DES_EVERY] - des_ms) / des_ms))
+    err_refined = float(np.mean(np.abs(ref.makespans - des_ms) / des_ms))
+    for frac, want in DES_EXACT.items():
+        got = paper.measure_makespan(frac)
+        check(got == want, f"DES at {frac}: {got}, expected {want}")
+    gates = (0.5, 0.75, 0.95)
+    g_des = [paper.measure_makespan(f)[0] for f in gates]
+    g_ref = refined.sweep(refined.prepare(paper.sweep_scenarios(gates)),
+                          backend="torch").makespans
+    for f, d, m in zip(gates, g_des, g_ref):
+        check(abs(m - d) <= 0.002 * d, f"refined at {f}: {m} against DES {d}")
+    p50 = float(plan.sweep(plan.prepare(paper.sweep_scenarios([0.5])),
+                           backend="torch").makespans[0])
+    check(p50 >= g_des[0] and abs(p50 - g_des[0]) <= 0.15 * g_des[0],
+          f"paper recipe at 0.5: {p50} against DES {g_des[0]}")
+    # §6: the model's cost does not grow with the data, the DES's does
+    big = paper.compile_paper_plan(0.5, video_bytes=paper.VIDEO_BYTES * 90)
+    one, one_big = (p.prepare(paper.sweep_scenarios([0.5])) for p in (plan, big))
+    model_s = median_s(lambda: plan.sweep(one, backend="torch"))
+    model_big_s = median_s(lambda: big.sweep(one_big, backend="torch"))
+    host_model_s = median_s(lambda: paper.predict_makespan(0.5))
+    host_model_big_s = median_s(lambda: paper.predict_makespan(
+        0.5, video_bytes=paper.VIDEO_BYTES * 90))
+    des1_s, (_m, ev1) = host_s(lambda: paper.measure_makespan(0.5))
+    des10_s, (_m, ev10) = host_s(lambda: paper.measure_makespan(
+        0.5, video_bytes=paper.VIDEO_BYTES * 10))
+    emit("des_vs_model", B=rep.B, des_points=len(sel), des_s=des_s,
+         mean_rel_err_paper=err_paper, mean_rel_err_refined=err_refined,
+         des_exact={str(f): list(v) for f, v in DES_EXACT.items()},
+         refined_vs_des={str(f): [float(m), d] for f, d, m in zip(gates, g_des, g_ref)},
+         paper_at_0_5=[p50, g_des[0]],
+         runtime={"model_card_s": {"1.1GB": model_s, "90x": model_big_s},
+                  "model_host_s": {"1.1GB": host_model_s, "90x": host_model_big_s},
+                  "des_s": {"1.1GB": des1_s, "10x": des10_s},
+                  "des_events": {"1.1GB": ev1, "10x": ev10}})
+
+
+def phase_shared_link(paper):
+    """``sequential_allocation`` on the paper's two downloads (§3.4/§5.2):
+    dl2 finishes when the link has moved both files, the summed usage never
+    exceeds the capacity; the allocated workflow then sweeps on the card to
+    the same finishes."""
+    import numpy as np
+    from repro_torch.core import (DataDep, PPoly, Process, ResourceDep,
+                                  Workflow, sequential_allocation, total_usage)
+    from repro_torch.sweep import Scenario
+
+    V, C = paper.VIDEO_BYTES, paper.LINK_BPS
+    rows = []
+    for frac in SHARED_FRACS:
+        wf = Workflow()
+        for n in ("dl1", "dl2"):
+            wf.add(Process(n, data={"remote": DataDep.stream(V, V)},
+                           resources={"link": ResourceDep.stream(V, V)},
+                           total_progress=V).identity_output())
+            wf.set_data_input(n, "remote", PPoly.constant(V))
+        users = [("dl1", "link", PPoly.constant(frac * C)),
+                 ("dl2", "link", PPoly.constant(C))]
+        alloc_s, res = host_s(lambda: sequential_allocation(wf, users, C))
+        t1, t2 = res["dl1"].finish_time, res["dl2"].finish_time
+        check(abs(t1 - V / (frac * C)) <= 1e-9 * t1, f"dl1 at {frac}: {t1}")
+        check(abs(t2 - 2 * V / C) <= 1e-6 * t2, f"dl2 at {frac}: {t2}")
+        tot = total_usage(res, "link", np.linspace(0.0, 400.0, 801))
+        check(float(tot.max()) <= C * (1 + 1e-9), f"usage {tot.max()} > {C}")
+        plan = wf.compile()
+        rep = plan.sweep(plan.prepare([Scenario()]), backend="torch")
+        check_torch_report(rep, "shared_link")
+        for n, want in (("dl1", t1), ("dl2", t2)):
+            got = float(rep.finish[n][0])
+            check(abs(got - want) <= 1e-5 * want, f"card {n} {got} vs {want}")
+        rows.append({"frac": frac, "dl1_s": t1, "dl2_s": t2,
+                     "max_usage_over_capacity": float(tot.max()) / C,
+                     "allocation_s": alloc_s})
+    emit("shared_link", dl2_expected_s=2 * V / C, cases=rows)
+
+
+def phase_trace_report(paper, scenarios):
+    """``trace_report`` for the fig7 (B = 600) and b10k_ramped packs on the
+    card and on the CPU, each twice (identical counts), one level loop per
+    topology level; the device events of one warm sweep from torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.sweep.torch_engine import trace_report
+
+    out = {}
+    for name, scs in (
+            ("fig7", paper.sweep_scenarios(np.linspace(0.02, 0.98, 600))),
+            ("b10k_ramped", ramped_scenarios(paper, scenarios, B_LARGE))):
+        row = {}
+        for dev in ("cuda", "cpu"):
+            plan = paper.compile_paper_plan(0.5, device=dev)
+            pack = plan.prepare(scs)
+            plan.sweep(pack, backend="torch")          # proves the cap
+            first = trace_report(plan, pack)
+            second = trace_report(plan, pack)
+            check(first == second, f"{name} on {dev}: counts differ between calls")
+            check(first["level_loops"] == len(plan.levels) == 3,
+                  f"{name} on {dev}: {first['level_loops']} loops, "
+                  f"{len(plan.levels)} levels")
+            check(not first["overflow"], f"{name} on {dev}: overflow at the cap")
+            row[dev] = first
+            if dev == "cuda":
+                plan.sweep(pack, backend="torch")
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    warm_s, _ = host_s(lambda: plan.sweep(pack, backend="torch"))
+                events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+                row["cuda_profile"] = {
+                    "device_events": len(events),
+                    "device_busy_ms": sum(e.time_range.elapsed_us()
+                                          for e in events) / 1e3,
+                    "wall_ms": warm_s * 1e3}
+            del plan, pack
+        out[name] = row
+    emit("trace_report", **out)
+
+
+def phase_sweep_shim(paper):
+    """The deprecated ``repro_torch.sweep.analyze`` on the card: it warns and
+    equals ``plan.sweep`` bit for bit."""
+    import warnings
+
+    import numpy as np
+    from repro_torch import sweep
+
+    scs = paper.sweep_scenarios(np.linspace(0.02, 0.98, 600))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = sweep.analyze(paper.build_workflow(0.5), scs, backend="torch")
+    check(any(issubclass(w.category, DeprecationWarning) for w in caught),
+          "sweep.analyze did not warn")
+    check(sweep.SweepResult is type(got), "SweepResult is not the Report")
+    want = paper.compile_paper_plan(0.5).sweep(scs, backend="torch")
+    check_torch_report(got, "sweep_shim")
+    check(got.makespans.tobytes() == want.makespans.tobytes(), "makespans differ")
+    check(got.share_seconds.tobytes() == want.share_seconds.tobytes(),
+          "shares differ")
+    for pn in want.order:
+        check(got.finish[pn].tobytes() == want.finish[pn].tobytes(),
+              f"finish {pn} differs")
+    emit("sweep_shim", B=got.B, device=str(got.plan.device), warned=True,
+         bitwise_vs_plan_sweep=True)
+
+
+# ------------------------------------------- MoE and Mamba families ----
+def cut_config(arch: str, n_layers: int):
+    """The full-width config cut to ``n_layers``; (cfg, the cut)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    return (dataclasses.replace(full, n_layers=n_layers),
+            {"n_layers": [full.n_layers, n_layers]})
+
+
+def phase_lm_prefill_cut(phase: str, arch: str, n_layers: int):
+    """``arch`` at full width cut to ``n_layers`` in bf16, weights from
+    init_params(seed=0) on the card; prefill of B x S seeded tokens, every
+    flash call recorded and held against the plain version with the bars of
+    ``flash_failures``.  Returns (cfg, model, launches, worst error, the
+    first flash call's inputs)."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+
+    cfg, reduced = cut_config(arch, n_layers)
+    kinds = [cfg.layer_kind(i % cfg.period) for i in range(cfg.n_layers)]
+    n_attn = sum(k["mixer"] == "attn" for k in kinds)
+    init_s, tree = host_s(lambda: init_params(cfg, seed=0))
+    model = T.DecoderLM(cfg, tree)
+    del tree
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                                     generator=gen, device="cuda")}
+    with torch.inference_mode():
+        with Recorder(fa, ["flash_attention"]) as rec:
+            reset_launches()
+            cold_s, last = host_s(lambda: T.prefill(model, cfg, batch))
+            launches = read_launches()
+        check(launches["flash_attention"] == launches["flash_attention_tc"]
+              == n_attn, f"{launches['flash_attention']} flash launches "
+              f"({launches['flash_attention_tc']} on the tensor cores), "
+              f"{n_attn} attention layers")
+        check(tuple(last.shape) == (LM_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(last).all()), f"{phase} logits")
+        errs = [flash_err(out, args, kw)
+                for (_n, args, out), kw in zip(rec.calls, rec.kwargs)]
+        first = (rec.calls[0][1], rec.kwargs[0])
+        del rec
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        warm_s, last2 = host_s(lambda: T.prefill(model, cfg, batch))
+        peak = torch.cuda.max_memory_allocated()
+        drift = float((last2.float() - last.float()).abs().max())
+    split = prefill_split(cfg, model, batch)
+    q, k = first[0][0], first[0][1]
+    emit(phase, arch=cfg.name, dtype=cfg.dtype, reduced=reduced,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+         experts=[cfg.n_experts, cfg.top_k, cfg.d_ff, cfg.capacity_factor],
+         layer_kinds=[f"{k['mixer']}+{k['ffn']}" for k in kinds],
+         batch=LM_BATCH, seq=LM_SEQ, n_params=cfg.n_params(),
+         weight_bytes=weight_bytes, init_s=init_s, cold_s=cold_s,
+         warm_s=warm_s, tok_s=LM_BATCH * LM_SEQ / warm_s,
+         peak_memory_bytes=peak, split=split, launches=launches,
+         flash_calls=len(errs), flash_shape={"q": list(q.shape), "k": list(k.shape),
+                      "group": q.shape[1] // k.shape[1]},
+         **worst_of(errs), tol=0.03, rel_l2_tol=4e-3,
+         elem_bar="2**-8 (|want| + P|V|) + 2e-05", rerun_max_abs_diff=drift)
+    return cfg, model, launches, worst_of(errs)["max_abs_err"], first
+
+
+def prefill_split(cfg, model, batch) -> dict:
+    """One prefill taken apart: host seconds (each ending in a synchronize)
+    of the embedding, of every layer's mixer and FFN, summed by kind, and
+    of the logits; the pieces run the same calls as ``Block.forward``."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import attn_forward
+    from repro_torch.models.common import rmsnorm
+    from repro_torch.models.mamba import mamba_forward
+
+    mixer_s: dict[str, float] = {}
+    ffn_s: dict[str, float] = {}
+    with torch.inference_mode():
+        embed_s, h = host_s(lambda: model.embed_in(batch))
+        B, S = h.shape[:2]
+        positions = T._positions(cfg, batch, B, S, h.device)
+        for blk in model.blocks:
+            mixer, ffn = blk.kind["mixer"], blk.kind["ffn"]
+
+            def mix(h=h, blk=blk, mixer=mixer):
+                hn = rmsnorm(h, blk.norm_mixer, cfg.norm_eps)
+                if mixer == "attn":
+                    return h + attn_forward(blk.attn, hn, cfg, positions)[0]
+                return h + mamba_forward(blk.mamba, hn, cfg)
+
+            t, h = host_s(mix)
+            mixer_s[mixer] = mixer_s.get(mixer, 0.0) + t
+            t, h = host_s(lambda h=h, blk=blk: blk._ffn(h))
+            ffn_s[ffn] = ffn_s.get(ffn, 0.0) + t
+        logits_s, _ = host_s(lambda: model.logits_out(h)[:, -1])
+    return {"embed_s": embed_s, "mixer_s": mixer_s, "ffn_s": ffn_s,
+            "logits_s": logits_s,
+            "sum_s": embed_s + sum(mixer_s.values()) + sum(ffn_s.values())
+            + logits_s}
+
+
+def serve_cut(arch: str, model) -> dict:
+    """The serving launcher with a model cut in depth (its ``params=``)."""
+    import torch
+    from repro_torch.launch import serve
+
+    reset_launches()
+    out = serve.main(["--arch", arch, "--no-smoke"], params=model)
+    launches = read_launches()
+    gen = out["continuations"]
+    check(gen.shape == (8, 16) and out["requests"] == 8, f"served {gen.shape}")
+    check(bool(torch.isfinite(out["prompt_logits"]).all()),
+          "decode logits not finite")
+    trace = trace_decode(model.cfg, model, out["requests"],
+                         out["prompt_len"] + out["generated"])
+    return {"arch": out["arch"], "requests": out["requests"],
+            "prompt_len": out["prompt_len"], "generated": out["generated"],
+            "wall_s": out["wall_s"], "tok_s": out["tok_s"],
+            "median_step_ms": out["median_step_ms"], "sample": out["sample"],
+            "launches": launches, "decode_trace": trace}
+
+
+def crosscheck_f32(cfg) -> dict:
+    """Prefill against a token-by-token decode in float32 at the same width
+    and depth, the same seed's weights before their bf16 rounding, capacity
+    drops off (``capacity_factor = n_experts``: drops depend on the token
+    count, the reference's rule); max abs at the reference's 2e-2, the
+    relative L2 beside it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                capacity_factor=float(cfg.n_experts))
+    model = T.DecoderLM(cfg32, init_params(cfg32, seed=0))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, XCHECK_SHAPE, generator=gen,
+                         device="cuda")
+    with torch.inference_mode():
+        full = T.forward(model, cfg32, {"tokens": toks})
+        cache = T.init_cache(cfg32, toks.shape[0], toks.shape[1])
+        steps = []
+        for t in range(toks.shape[1]):
+            logits, cache = T.decode_step(model, cfg32, cache,
+                                          {"tokens": toks[:, t:t + 1]}, t)
+            steps.append(logits)
+        dec = torch.stack(steps, 1)
+    err = float((dec - full).abs().max())
+    rel = rel_l2(dec, full)
+    check(bool(torch.isfinite(dec).all()), "float32 decode logits not finite")
+    check(err < XCHECK_TOL, f"{cfg.name} float32 prefill vs decode: max abs "
+                            f"{err} (relative L2 {rel})")
+    del model, cache, full, dec
+    torch.cuda.empty_cache()
+    return {"crosscheck_f32_max_abs": err, "crosscheck_f32_tol": XCHECK_TOL,
+            "crosscheck_f32_rel_l2": rel,
+            "crosscheck_f32_shape": list(XCHECK_SHAPE),
+            "crosscheck_f32_capacity_factor": cfg32.capacity_factor}
+
+
+def flash_shape_times(first) -> dict:
+    """One flash call of a prefill, timed by CUDA events: the kernel, the
+    plain version, scaled_dot_product_attention; its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fa
+
+    (q, k, v), kw = first
+    B, H, S, D = q.shape
+    ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=10)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=3)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=10)
+    b_ms, b_by = flash_bound(q, k, v, kw["causal"], kw["window"])
+    flops = 4 * B * H * D * attended_pairs(S, kw["causal"], kw["window"])
+    return {"q": list(q.shape), "k": list(k.shape), "group": H // k.shape[1],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "tflops": flops / ms / 1e9}
+
+
 #: each curve query of the Report: its op and the tables it reads
 QUERY_OPS = {"sample_progress": ("ppoly_eval", "progress"),
              "data_ceiling": ("ppoly_min_eval", "ceilings"),
@@ -2107,6 +2500,18 @@ def main() -> int:
         counts = read_launches() if counts is None else counts
         service[name] = {k: n for k, n in counts.items() if n}
     emit("service_launches", launches=service)
+
+    # ---- the rest of the analysis side: DES, shared link, trace, shim ----
+    rest = {}
+    for name, run in (("des_vs_model", lambda: phase_des_vs_model(paper)),
+                      ("shared_link", lambda: phase_shared_link(paper)),
+                      ("trace_report", lambda: phase_trace_report(paper, scenarios)),
+                      ("sweep_shim", lambda: phase_sweep_shim(paper))):
+        reset_launches()
+        run()
+        torch.cuda.synchronize()
+        rest[name] = {k: n for k, n in read_launches().items() if n}
+    emit("analysis_rest_launches", launches=rest)
     for row in rows:
         row["launches_by_path"] = {"analysis": row["launches"], **{
             name: counts.get(row["name"], 0) for name, counts in service.items()}}
@@ -2135,6 +2540,30 @@ def main() -> int:
     wkv_launches["by_phase"] = {"lm_prefill_rwkv": rwkv_launches["wkv6"],
                                 "lm_serve_rwkv": serve_launches["wkv6"]}
     rows.append(wkv_row(wkv_launches, wkv_errs, first))
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the MoE and Mamba families: prefill, the launcher, float32 check ----
+    flash = next(r for r in rows if r["name"] == "flash_attention")
+    flash["launches_by_path"] = {"lm_prefill": flash["launches"]}
+    flash["by_shape"] = {}
+    for arch, depth, tag in ((MOE_ARCH, MOE_LAYERS, "moe"),
+                             (JAMBA_ARCH, JAMBA_LAYERS, "jamba")):
+        cfg, model, cut_launches, err, first = phase_lm_prefill_cut(
+            f"lm_prefill_{tag}", arch, depth)
+        flash["launches_by_path"][f"lm_prefill_{tag}"] = cut_launches["flash_attention"]
+        flash["max_abs_err"] = max(flash["max_abs_err"], err)
+        flash["by_shape"][f"lm_prefill_{tag}"] = flash_shape_times(first)
+        del first
+        served = serve_cut(arch, model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit(f"lm_serve_{tag}", reduced=cut_config(arch, depth)[1], **served,
+             **crosscheck_f32(cfg))
+        gc.collect()
+        torch.cuda.empty_cache()
     emit("timing", analysis_peak_memory_bytes=analysis_peak,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(smi, flush=True)

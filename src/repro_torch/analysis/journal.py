@@ -22,10 +22,20 @@ it.  The journal makes every acknowledged ingest durable:
 The CRC layer detects torn writes and bit rot, not adversaries; journals
 are pickle-backed and belong in the same trust domain as the artifact
 store.
+
+Payloads unpickle through :class:`_PortUnpickler`, which imports nothing
+outside this package, numpy, ``builtins`` and ``collections``. A journal
+written by the JAX reference (same framing) names the reference's classes:
+those whose pickled state fits this package's twin of the same name are
+mapped to the twin (:data:`MAPPED_CLASSES`); every other class — the rest
+of ``repro``, ``jax`` and anything else — is refused with
+:class:`JournalError` naming it, so reading a journal never loads the
+reference or JAX.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import pickle
 import struct
@@ -42,6 +52,40 @@ _REC_HEADER = struct.Struct("<II")  # (payload length, crc32(payload))
 #: sanity bound — a length field beyond this means a corrupt header, not a
 #: real record, so scanning stops there instead of allocating garbage
 _MAX_RECORD = 1 << 26
+
+#: reference module -> class names whose pickled state (``__dict__`` or
+#: ``__slots__``) has exactly the fields of the twin at the same path
+#: under ``repro_torch``
+MAPPED_CLASSES: dict[str, frozenset[str]] = {
+    "repro.core.ppoly": frozenset({"PPoly"}),
+    "repro.core.process": frozenset({"Process", "DataDep", "ResourceDep"}),
+    "repro.core.workflow": frozenset({"Workflow", "_Edge"}),
+    "repro.sweep.batch": frozenset({"Scenario"}),
+    "repro.analysis.scenarios": frozenset({
+        "ScenarioSpec", "Dist", "LogNormal", "Uniform", "Triangular",
+        "Discrete", "DistRamp"}),
+}
+_ALLOWED_ROOTS = ("repro_torch", "numpy", "builtins", "collections")
+
+
+class _PortUnpickler(pickle.Unpickler):
+    """Resolves a payload's classes without importing ``repro`` or ``jax``:
+    reference classes in :data:`MAPPED_CLASSES` become their
+    ``repro_torch`` twins; any other module outside this package, numpy,
+    ``builtins`` and ``collections`` raises :class:`JournalError`."""
+
+    def find_class(self, module: str, name: str) -> Any:
+        if name in MAPPED_CLASSES.get(module, ()):
+            module = "repro_torch" + module[len("repro"):]
+        elif module.split(".", 1)[0] not in _ALLOWED_ROOTS:
+            raise JournalError(
+                f"journal record holds {module}.{name}, which has no "
+                "repro_torch twin; refusing to import it")
+        return super().find_class(module, name)
+
+
+def _loads(payload: bytes) -> Any:
+    return _PortUnpickler(io.BytesIO(payload)).load()
 
 
 class JournalError(RuntimeError):
@@ -94,7 +138,9 @@ def _scan(path: Path, *, parse: bool = True):
             break
         if parse:
             try:
-                records.append(pickle.loads(payload))
+                records.append(_loads(payload))
+            except JournalError:
+                raise  # a refused class is not a torn tail: keep the file
             except Exception as e:  # noqa: BLE001 — checksummed but stale
                 torn = f"record does not unpickle ({e})"
                 break

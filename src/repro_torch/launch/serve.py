@@ -4,7 +4,8 @@
 
 A miniature serving loop: a batch of requests is prefilled token by token
 through the cached decode path (the KV cache of the attention families, the
-token-shift and wkv state of RWKV-6), then decoded greedily, one token a
+token-shift and wkv state of RWKV-6, the conv window and ssm state of
+Mamba), then decoded greedily, one token a
 step.  The BottleMod progress monitor times the decode steps.  Runs on the
 CUDA card unless ``--device cpu`` is given.
 """
@@ -27,8 +28,7 @@ from ..runtime.monitor import ProgressMonitor
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", choices=list_archs(), default="rwkv6-1.6b",
-                    help="model (default rwkv6-1.6b); the MoE and Mamba "
-                         "families are not served yet and raise")
+                    help="model (default rwkv6-1.6b)")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="use the smoke config (default); --no-smoke loads "
@@ -50,12 +50,19 @@ def main(argv: list[str] | None = None, *, params: T.DecoderLM | None = None) ->
     """Run the loop; returns what it printed as a dict, plus the prompts,
     the continuations and the logits after the last prompt token.
 
-    ``params``: a model to serve instead of ``init_params(cfg, seed=0)``
-    (it must match the chosen config).
+    ``params``: a model to serve instead of ``init_params(cfg, seed=0)``,
+    of the chosen architecture; its own config is served, so a model cut
+    in depth (``dataclasses.replace(cfg, n_layers=...)``) serves at its
+    depth.
     """
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if params is not None:
+        if params.cfg.name != cfg.name:
+            raise ValueError(f"params are a {params.cfg.name} model, not "
+                             f"{cfg.name}")
+        cfg = params.cfg
     if cfg.frontend == "audio":
         raise SystemExit("serve demo uses token models; pick a non-audio arch")
     model = params if params is not None else T.DecoderLM(cfg, init_params(cfg, 0, dev))

@@ -1,2 +1,3 @@
-"""Language models of the torch port: the attention families (dense, vlm,
-audio) and RWKV-6, with their serving entry points."""
+"""Language models of the torch port: every architecture family (dense, MoE,
+the Jamba hybrid with Mamba mixers, RWKV-6, vlm and audio), with their
+serving entry points."""

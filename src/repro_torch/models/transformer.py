@@ -1,5 +1,6 @@
-"""Decoder LM for the attention families (dense, vlm with M-RoPE, audio) and
-RWKV-6.
+"""Decoder LM for every architecture family: dense and MoE transformers
+(GQA, RoPE, SWA, M-RoPE), Jamba-style hybrids (Mamba mixers with periodic
+attention and periodic MoE), RWKV-6 and the stub-frontend modalities.
 
 :class:`DecoderLM` holds one :class:`Block` per layer in an
 ``nn.ModuleList``.  The module-level functions keep the reference package's
@@ -12,7 +13,7 @@ names and arguments:
 ``params`` is a :class:`DecoderLM`.  Build one from a parameter tree in the
 reference layout: ``DecoderLM(cfg, init_params(cfg, seed=0))``, or
 :func:`repro_torch.models.convert.params_from_arrays` for the reference's
-own parameters.  Experts and Mamba mixers are not ported yet and raise
+own parameters.  The ``rwkv_bf16`` variant is not ported yet and raises
 ``NotImplementedError``.
 """
 
@@ -27,17 +28,15 @@ from torch import nn
 from ..device import resolve_device
 from .attention import Attention, attn_decode, attn_forward
 from .common import ModelConfig, cross_entropy, rmsnorm
+from .mamba import Mamba, mamba_decode, mamba_forward, mamba_init_state
+from .moe import MoE, moe_forward
 from .rwkv import ChannelMix, TimeMix, rwkv_channel_mix, rwkv_init_state, rwkv_time_mix
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1, item 9)"
+_NOT_PORTED = "not ported yet (ROADMAP queue 1, item 2)"
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the families this port lacks."""
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts FFN {_NOT_PORTED}")
-    if cfg.ssm == "mamba" or cfg.attn_every:
-        raise NotImplementedError(f"{cfg.name}: Mamba mixers {_NOT_PORTED}")
+    """Raise ``NotImplementedError`` for the variants this port lacks."""
     if cfg.rwkv_bf16:
         raise NotImplementedError(f"{cfg.name}: the rwkv_bf16 variant (bf16 "
                                   f"intra-chunk math) {_NOT_PORTED}")
@@ -60,8 +59,8 @@ class DenseFFN(nn.Module):
 
 class Block(nn.Module):
     """Pre-norm mixer + FFN, one layer; the kinds come from
-    ``cfg.layer_kind``: attention + dense FFN, or RWKV-6 time mix + channel
-    mix."""
+    ``cfg.layer_kind``: mixer attention, Mamba or RWKV-6 time mix; FFN
+    dense, MoE or RWKV-6 channel mix."""
 
     def __init__(self, cfg: ModelConfig, p: dict, kind: dict):
         super().__init__()
@@ -71,10 +70,14 @@ class Block(nn.Module):
         self.norm_ffn = _param(p["norm_ffn"])
         if kind["mixer"] == "attn":
             self.attn = Attention(**p["attn"])
+        elif kind["mixer"] == "mamba":
+            self.mamba = Mamba(**p["mamba"])
         else:
             self.rwkv = TimeMix(**p["rwkv"])
         if kind["ffn"] == "dense":
             self.ffn = DenseFFN(**p["ffn"])
+        elif kind["ffn"] == "moe":
+            self.moe = MoE(**p["moe"])
         else:
             self.cmix = ChannelMix(**p["cmix"])
 
@@ -82,6 +85,8 @@ class Block(nn.Module):
         hn = rmsnorm(h, self.norm_ffn, self.cfg.norm_eps)
         if self.kind["ffn"] == "dense":
             return h + self.ffn(hn)
+        if self.kind["ffn"] == "moe":
+            return h + moe_forward(self.moe, hn, self.cfg)
         y, st = rwkv_channel_mix(self.cmix, hn, self.cfg, state)
         if state is not None:
             state["shift"].copy_(st["shift"])
@@ -92,6 +97,8 @@ class Block(nn.Module):
         hn = rmsnorm(h, self.norm_mixer, cfg.norm_eps)
         if self.kind["mixer"] == "attn":
             y, _ = attn_forward(self.attn, hn, cfg, positions)
+        elif self.kind["mixer"] == "mamba":
+            y = mamba_forward(self.mamba, hn, cfg)
         else:
             y, _ = rwkv_time_mix(self.rwkv, hn, cfg)
         return self._ffn(h + y)
@@ -102,6 +109,11 @@ class Block(nn.Module):
         hn = rmsnorm(h, self.norm_mixer, cfg.norm_eps)
         if self.kind["mixer"] == "attn":
             y, _, _ = attn_decode(self.attn, hn, cfg, c["k"], c["v"], pos_idx)
+            return self._ffn(h + y)
+        if self.kind["mixer"] == "mamba":
+            y, st = mamba_decode(self.mamba, hn, cfg, c)
+            c["conv"].copy_(st["conv"])
+            c["ssm"].copy_(st["ssm"])
             return self._ffn(h + y)
         y, st = rwkv_time_mix(self.rwkv, hn, cfg, state=c["att"])
         c["att"]["shift"].copy_(st["shift"])
@@ -194,19 +206,24 @@ def init_cache(cfg: ModelConfig, batch_size: int, context: int,
     """Zero decode caches for every layer, stacked per period position (a
     leading group axis G = ``n_groups``).  Attention: ``{"pos{i}": {"k":
     (G, B, Hkv, kv_len, Dh), "v": ...}}``; a window model's ``kv_len`` is
-    ``min(context, window)`` (a ring buffer).  RWKV-6: ``{"pos{i}": {"att":
-    {"shift": (G, B, D), "wkv": (G, B, H, N, N) float32}, "cmix": {"shift":
-    (G, B, D)}}}``, shifts in the model dtype."""
+    ``min(context, window)`` (a ring buffer).  Mamba: ``{"pos{i}": {"conv":
+    (G, B, d_conv - 1, Di), "ssm": (G, B, Di, d_state) float32}}``.  RWKV-6:
+    ``{"pos{i}": {"att": {"shift": (G, B, D), "wkv": (G, B, H, N, N)
+    float32}, "cmix": {"shift": (G, B, D)}}}``, shifts in the model dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
     G, dt = cfg.n_groups, cfg.torch_dtype
     kv_len = min(context, cfg.window) if cfg.window else context
     cache: dict[str, Any] = {}
     for i in range(cfg.period):
-        if cfg.layer_kind(i)["mixer"] == "attn":
+        mixer = cfg.layer_kind(i)["mixer"]
+        if mixer == "attn":
             shape = (G, batch_size, cfg.n_kv_heads, kv_len, cfg.head_dim)
             cache[f"pos{i}"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
                                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+        elif mixer == "mamba":
+            cache[f"pos{i}"] = _stack(
+                mamba_init_state(cfg, batch_size, dt, dev), G)
         else:
             st = rwkv_init_state(cfg, batch_size, dt, dev)
             cache[f"pos{i}"] = _stack(st, G)

@@ -42,6 +42,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core.ppoly import PPoly, TIME_TOL, VAL_RTOL
 from repro_torch.kernels.ppoly_eval.ref import PAD_START
@@ -50,9 +51,10 @@ from .engine import BatchProcResult
 from .plin import BPL, UnsupportedScenario, compose_scalar
 
 __all__ = ["IterationLadderExhausted", "TorchSweepEngine", "LazyCeilings",
-           "DEFAULT_ITER_CAP", "MAX_ITER_CAP"]
+           "DEFAULT_ITER_CAP", "MAX_ITER_CAP", "trace_report"]
 
 _F64 = torch.float64
+_aten = torch.ops.aten
 
 
 class IterationLadderExhausted(UnsupportedScenario):
@@ -482,7 +484,7 @@ class _WorkflowSpec:
 
 def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
                  ramps: bool = False, fixed_iters: bool = False,
-                 need_share: bool = True):
+                 need_share: bool = True, mark=None):
     """Mirror of ``engine.solve_batch``'s event loop, stacked over the
     ``Lp`` processes of one topology level, with fixed-size record buffers
     (two slots per iteration when the level has bursts: burst-stall, then
@@ -512,6 +514,10 @@ def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
     aggregation reads.  ``overflow`` is then a device boolean.
     ``need_share=False`` skips the share aggregation, which the makespan
     never reads.
+
+    ``mark`` (for :func:`trace_report` only) is called with ``"level"`` on
+    entry, ``"iter"`` at the top of every loop body and ``"end"`` after the
+    loop.
     """
     Lp = len(ls.procs)
     nC, Lr, n_rb = ls.nC, ls.Lr, ls.n_rb
@@ -546,9 +552,13 @@ def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
                             device=dev) if has_jumps else None)
     slots = []                  # the (nbuf, Lp, B) record of each slot
 
+    if mark is not None:
+        mark("level")
     it = 0
     while it < iter_cap and (fixed_iters
                              or bool((active & (p < p_end - ftol)).any())):
+        if mark is not None:
+            mark("iter")
         act = active & (p < p_end - ftol)
 
         # ---- ceilings at t: value/slope/next-break from ONE piece lookup ---
@@ -799,6 +809,8 @@ def _solve_level(ls: _LevelSpec, k: dict, C, IR, t0, B: int, iter_cap: int,
             slots.append(torch.stack(rec0))
         slots.append(torch.stack(rec1))
         it += 1
+    if mark is not None:
+        mark("end")
 
     slots += [zeros(nbuf, Lp, B)] * (R - len(slots))   # slots never reached
     rec = torch.stack(slots, -1)
@@ -1102,7 +1114,7 @@ class TorchSweepEngine:
         return t0, C, IR
 
     # -- one sweep at a fixed iteration budget ------------------------------
-    def _make_run(self, B: int, iter_cap: int, ramps: bool):
+    def _make_run(self, B: int, iter_cap: int, ramps: bool, mark=None):
         spec, consts, dev = self.spec, self._consts, self.device
         arity = 4 if ramps else 3
 
@@ -1112,7 +1124,8 @@ class TorchSweepEngine:
             for ls, la, k in zip(spec.levels, largs, consts):
                 t0, C, IR = self._level_inputs(ls, la, B, arity, finish_by,
                                                progress_by)
-                res = _solve_level(ls, k, C, IR, t0, B, iter_cap, ramps)
+                res = _solve_level(ls, k, C, IR, t0, B, iter_cap, ramps,
+                                   mark=mark)
                 if res["overflow"]:   # the ladder retries at a larger budget
                     return None
                 solved.append((ls, t0, res))
@@ -1169,7 +1182,7 @@ class TorchSweepEngine:
 
     # -- differentiable makespan path ---------------------------------------
     def make_diff_run(self, B: int, iter_cap: int, ramps: bool,
-                      apply_theta=None):
+                      apply_theta=None, mark=None):
         """A makespan that autograd differentiates, through the level-fused
         event loop — the engine half of ``plan.optimize()``.
 
@@ -1204,7 +1217,8 @@ class TorchSweepEngine:
                 if IR is not None and apply_theta is not None:
                     IR = apply_theta(IR, li, theta)
                 res = _solve_level(ls, k, C, IR, t0, B, iter_cap, ramps,
-                                   fixed_iters=True, need_share=False)
+                                   fixed_iters=True, need_share=False,
+                                   mark=mark)
                 overflow = overflow | res["overflow"]
                 for pi, ps in enumerate(ls.procs):
                     finish_by[ps.name] = res["finish"][pi]
@@ -1384,3 +1398,113 @@ class TorchSweepEngine:
                 factor_kinds=kinds, factor_names=names, share_seconds=share,
                 iterations=int(r["iterations"]))
         return results
+
+
+# ---------------------------------------------------------------------------
+# dispatch census of a re-sweep (the twin of the reference's jaxpr counts)
+# ---------------------------------------------------------------------------
+
+class _OpCensus(TorchDispatchMode):
+    """Counts every aten op dispatched under it, the scalar reads
+    (``aten._local_scalar_dense``: ``bool(t)``, ``t.item()``) and the copies
+    from a device to the host; :meth:`mark` snapshots the counts."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = self.scalar_reads = self.copies_to_host = 0
+        self.marks: list[tuple[str, int, int]] = []
+
+    def mark(self, kind: str) -> None:
+        self.marks.append((kind, self.ops, self.scalar_reads))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        self.ops += 1
+        if func is _aten._local_scalar_dense.default:
+            self.scalar_reads += 1
+        elif func is _aten._to_copy.default:
+            dst = kwargs.get("device")
+            if (dst is not None and torch.device(dst).type == "cpu"
+                    and args[0].device.type != "cpu"):
+                self.copies_to_host += 1
+        elif func is _aten.copy_.default:
+            if args[0].device.type == "cpu" and args[1].device.type != "cpu":
+                self.copies_to_host += 1
+        return func(*args, **kwargs)
+
+    def levels(self) -> list[dict]:
+        """Per ``_solve_level`` call: its iterations and one loop body's ops
+        and scalar reads (from the first body's mark to the next mark, so a
+        host-looped body includes the guard that decides the next one)."""
+        out, cur = [], None
+        for i, (kind, ops, reads) in enumerate(self.marks):
+            if kind == "level":
+                cur = {"iterations": 0, "body_ops": 0, "body_reads": 0}
+                out.append(cur)
+            elif kind == "iter":
+                cur["iterations"] += 1
+                if cur["iterations"] == 1:
+                    _k, ops2, reads2 = self.marks[i + 1]
+                    cur["body_ops"] = ops2 - ops
+                    cur["body_reads"] = reads2 - reads
+        return out
+
+
+def trace_report(plan, pack, *, iter_cap: int | None = None) -> dict:
+    """Deterministic dispatch census of one warm re-sweep of ``pack``.
+
+    The twin of ``repro.sweep.jax_engine.trace_report``: where the
+    reference counts the ``while`` loops and jaxpr equations of its traced
+    sweep, this counts what the host dispatches, under a
+    :class:`~torch.utils._python_dispatch.TorchDispatchMode`, on the
+    plan's device (the CPU too):
+
+    * ``level_loops`` — lockstep loops run, one per topology level;
+    * ``body_ops`` — aten ops of one iteration of each level's loop body,
+      summed over the levels (``body_ops_by_level``), the guard included;
+    * ``total_ops`` — every aten op of the sweep, the copy back included;
+    * ``host_syncs`` — ``scalar_reads`` (one loop guard per iteration and
+      one overflow flag per level) plus ``copies_to_host`` (none on the
+      CPU, where a tensor already is on the host);
+    * ``iterations`` — loop iterations per level; ``overflow`` — True when
+      ``iter_cap`` was too small and the engine would climb its ladder.
+
+    ``fixed_*`` keys give the same census for the fixed-trip form
+    (:meth:`TorchSweepEngine.make_diff_run`, ``iter_cap`` bodies per level,
+    nothing read back until its caller asks). ``iter_cap`` defaults to the
+    proven cap of ``(B, ramps)``, else the engine's default budget, as the
+    reference's does. The device arguments are built before counting: a
+    warm sweep reuses them.
+    """
+    eng = getattr(plan, "_torch_engine", None) or TorchSweepEngine(plan)
+    B, ramps = pack.B_batched, bool(pack.ramps)
+    dev_args = eng.device_args(eng.level_args(pack.host_args(), B, ramps))
+    cap = iter_cap or eng._proven_caps.get((B, 1, ramps), eng.iter_cap)
+
+    with torch.no_grad(), _OpCensus() as c:
+        out = eng._make_run(B, cap, ramps, mark=c.mark)(dev_args)
+        if out is not None:
+            eng._wrap(out, B)
+    with torch.no_grad(), _OpCensus() as f:
+        makespan, _overflow = eng.make_diff_run(B, cap, ramps,
+                                                mark=f.mark)(dev_args, None)
+    lv, flv = c.levels(), f.levels()
+    return {
+        "level_loops": len(lv),
+        "body_ops": sum(x["body_ops"] for x in lv),
+        "body_ops_by_level": [x["body_ops"] for x in lv],
+        "total_ops": c.ops,
+        "host_syncs": c.scalar_reads + c.copies_to_host,
+        "scalar_reads": c.scalar_reads,
+        "copies_to_host": c.copies_to_host,
+        "iterations": [x["iterations"] for x in lv],
+        "overflow": out is None,
+        "iter_cap": int(cap),
+        "fixed_level_loops": len(flv),
+        "fixed_body_ops": sum(x["body_ops"] for x in flv),
+        "fixed_body_ops_by_level": [x["body_ops"] for x in flv],
+        "fixed_body_reads": sum(x["body_reads"] for x in flv),
+        "fixed_total_ops": f.ops,
+        "fixed_host_syncs": f.scalar_reads + f.copies_to_host,
+        "fixed_iterations": [x["iterations"] for x in flv],
+    }

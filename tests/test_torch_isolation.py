@@ -398,3 +398,114 @@ def test_wkv6_kernel_matches_plain(cuda, chunk, B, L, H, N, scale):
         diff = (got - want).abs()
         assert float(diff.max()) <= 2e-3 * max(1.0, float(want.abs().max()))
         assert float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(want)) <= 1e-4
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.shared", "repro_torch.core.des",
+    "repro_torch.models.moe", "repro_torch.models.mamba",
+    "repro_torch.sweep.result", "repro_torch.analysis.journal"])
+def test_new_modules_load_neither_jax_nor_repro(module):
+    code = f"""
+import sys
+import {module}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_cpu_des_shared_trace_and_moe_load_neither_jax_nor_repro():
+    code = """
+import sys, warnings
+import numpy as np
+import torch
+from repro_torch import sweep
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.paper_workflow import (LINK_BPS, build_workflow,
+                                                measure_makespan,
+                                                sweep_scenarios)
+from repro_torch.core import PPoly, sequential_allocation
+from repro_torch.models import transformer as T
+from repro_torch.models.common import init_params
+from repro_torch.sweep.torch_engine import trace_report
+assert measure_makespan(0.5, video_bytes=1e8)[1] > 0
+wf = build_workflow(0.5)
+res = sequential_allocation(wf, [("dl1", "link", PPoly.constant(LINK_BPS))],
+                            LINK_BPS)
+assert res["dl1"].finish_time > 0
+plan = wf.compile(device="cpu")
+pack = plan.prepare(sweep_scenarios([0.3, 0.7]))
+assert trace_report(plan, pack)["level_loops"] == 3
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore", DeprecationWarning)
+    sweep.analyze(wf, sweep_scenarios([0.4]), device="cpu")
+for arch in ("qwen3-moe-235b-a22b", "jamba-v0.1-52b"):
+    cfg = get_smoke_config(arch)
+    model = T.DecoderLM(cfg, init_params(cfg, seed=0, device="cpu"))
+    with torch.inference_mode():
+        T.prefill(model, cfg, {"tokens": torch.zeros((2, 9), dtype=torch.long)})
+from repro_torch.kernels.flash_attention import kernel as fa
+assert fa._lib is None, "a CPU run built a CUDA library"
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def _moe_mamba_cfg(ssm):
+    from repro_torch.models.common import ModelConfig
+
+    return ModelConfig(name="m", family="hybrid", n_layers=1, d_model=64,
+                       n_heads=4, n_kv_heads=4, d_ff=96, vocab_size=64,
+                       head_dim=16, n_experts=8, top_k=2, capacity_factor=1.0,
+                       ssm=ssm, d_state=16, d_conv=4, ssm_expand=2,
+                       dtype="float32")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("impl", ["global", "local", "shmap"])
+def test_moe_on_the_card_matches_cpu(cuda, impl):
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models.common import _moe_specs, init_params
+
+    cfg = dataclasses.replace(_moe_mamba_cfg(None), moe_impl=impl)
+    tree = init_params(cfg, seed=0, device="cpu")
+    p = tree["blocks"]["pos0"]["moe"]
+    assert set(p) == set(_moe_specs(cfg, 0))
+    x = 0.5 * torch.randn((2, 300, 64), generator=torch.Generator().manual_seed(1))
+    want = moe.moe_forward(moe.MoE(**{k: v[0] for k, v in p.items()}), x, cfg)
+    pc = moe.MoE(**{k: v[0].to(cuda) for k, v in p.items()})
+    got = moe.moe_forward(pc, x.to(cuda), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_mamba_on_the_card_matches_cpu(cuda):
+    from repro_torch.models import mamba
+    from repro_torch.models.common import _mamba_specs, _init_leaf
+
+    cfg = _moe_mamba_cfg("mamba")
+    gen = torch.Generator().manual_seed(0)
+    p = {k: _init_leaf(gen, s, cfg, torch.device("cpu"))
+         for k, s in _mamba_specs(cfg, 0).items()}
+    x = 0.3 * torch.randn((2, 2 * mamba.CHUNK + 5, 64),
+                          generator=torch.Generator().manual_seed(1))
+    want = mamba.mamba_forward(mamba.Mamba(**p), x, cfg)
+    pc = mamba.Mamba(**{k: v.to(cuda) for k, v in p.items()})
+    got = mamba.mamba_forward(pc, x.to(cuda), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    st = mamba.mamba_init_state(cfg, 2, torch.float32, cuda)
+    y, st = mamba.mamba_decode(pc, x[:, :1].to(cuda), cfg, st)
+    torch.testing.assert_close(y.cpu(), want[:, :1], rtol=1e-4, atol=1e-4)
