@@ -82,7 +82,17 @@ then a float32 prefill against a token-by-token decode at B = 2, 32
 tokens, capacity drops off, at the reference's max abs 2e-2),
 lm_prefill_jamba and lm_serve_jamba (jamba-v0.1-52b, 8 of 32 layers: one
 period, 7 Mamba layers, attention at position 4 with one flash call at
-GQA group 4, 4 MoE layers; the same checks), then the
+GQA group 4, 4 MoE layers; the same checks), then training:
+train_grad_kernels (the flash and wkv6 autograd wrappers on seeded card
+tensors: forward bit for bit the kernel's, every gradient against the
+plain version's autograd gradient), train_100m
+(``repro_torch.launch.train.main`` with its defaults, dense-100m in
+float32, 30 steps; a run stopped at step 20 and restarted, its restored
+state bit for bit and its losses against the uninterrupted run's; one step
+on the card against the CPU), train_yi (yi-9b at full width, 16 of 48
+layers, bf16, B = 4, S = 2048, every flash call on the tensor cores),
+train_rwkv (rwkv6-1.6b at full width and depth, every wkv6 call chunked)
+and train_rwkv_f32 (2 layers in float32, a step against the CPU), then the
 per-kernel line with launches on each path, errors and times at each
 path's shapes (also with the L2 flushed between launches, the "tile"
 route on the same inputs, and ptxas registers and spills; for the crossing
@@ -177,6 +187,19 @@ XCHECK_SHAPE = (2, 32)
 XCHECK_TOL = 2e-2
 GRAD_CASES = (("caps", ("task1.cpu", "dl1.link"), (1.31, 0.73), False),
               ("ramped", ("task1.cpu", "task2.cpu"), (1.37, 0.81), True))
+#: training: the launcher's defaults (dense-100m, float32, B = 8, S = 256)
+#: for TRAIN_STEPS steps, a second run stopped at TRAIN_STOP and restarted;
+#: the card's step against the CPU's at these bars (loss rtol, relative L2
+#: of each gradient leaf) and the restarted run's losses at TRAIN_RESUME_TOL
+TRAIN_STEPS, TRAIN_STOP = 30, 20
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2, TRAIN_RESUME_TOL = 1e-4, 1e-3, 1e-3
+#: yi-9b at full width cut to 16 of 48 layers (bf16 parameters and
+#: gradients and float32 moments of all 48 need about 106 GB), rwkv6-1.6b at
+#: full width and depth: bf16, B x S, TRAIN_TIMED steps after one warm-up
+TRAIN_YI_LAYERS = 16
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 2048, 5
+#: rwkv6-1.6b cut to 2 layers in float32 for the card-against-CPU step
+RWKV_CPU_LAYERS, RWKV_CPU_SHAPE = 2, (1, 256)
 
 
 def emit(phase: str, **kv) -> None:
@@ -2401,6 +2424,364 @@ def ppoly_row(name: str, args, launches: dict, err: float) -> dict:
     return row
 
 
+# -------------------------------------------------------------- training ----
+def grad_case(fn, ins, cots, plain):
+    """``fn`` (the op, through its autograd wrapper) and ``plain`` (the
+    plain version) on the same card tensors ``ins``, each output dotted
+    with its cotangent and differentiated: (outputs, wrapper gradients,
+    plain gradients), one per input that requires a gradient."""
+    import torch
+
+    def run(f):
+        xs = [x.detach().requires_grad_(x.requires_grad) for x in ins]
+        outs = f(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        sum((o.float() * c).sum() for o, c in zip(outs, cots)).backward()
+        return outs, [x.grad for x in xs if x.requires_grad]
+
+    outs, got = run(fn)
+    _, want = run(plain)
+    check(all(g is not None and bool(torch.isfinite(g).all()) for g in got),
+          "an input that requires a gradient got none, or a non-finite one")
+    return outs, got, want
+
+
+def grad_errors(got, want, abs_bar, rel_bar, what: str) -> dict:
+    """Each gradient against the plain version's: max abs (at ``abs_bar``
+    times max(1, max |want|)) and relative L2 (at ``rel_bar``)."""
+    import torch
+
+    worst = {"max_abs_err": 0.0, "rel_l2": 0.0}
+    for g, w in zip(got, want):
+        diff = (g.float() - w.float()).abs()
+        err = float(diff.max())
+        rel = float(torch.linalg.vector_norm(diff)
+                    / torch.linalg.vector_norm(w.float()).clamp(min=1e-30))
+        check(err <= abs_bar * max(1.0, float(w.float().abs().max())) and rel <= rel_bar,
+              f"{what}: gradient max abs {err}, relative L2 {rel}")
+        worst = {"max_abs_err": max(worst["max_abs_err"], err),
+                 "rel_l2": max(worst["rel_l2"], rel)}
+    return worst
+
+
+def phase_train_grad_kernels():
+    """The two LM kernels' autograd wrappers on seeded card tensors: flash
+    attention in float32 and bf16 at GQA groups 1, 4 and 8, causal with and
+    without a window, S = 200 (off the 64 multiple); wkv6 at chunk 32,
+    L = 77 (off the chunk multiple), with a zero s0 and with an s0 that
+    requires a gradient.  The wrapper's forward is bit for bit the
+    kernel's, every input that requires a gradient gets one, and each
+    gradient equals the plain version's autograd gradient on the same
+    tensors at the kernel bars."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import MAX_ABS, REL_L2
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import wkv6, wkv_chunked_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dev = torch.device("cuda")
+    errs: dict = {"float32": [], "bfloat16": []}
+    cases = 0
+    for H, Hkv in ((8, 8), (8, 2), (8, 1)):
+        for window in (None, 48):
+            for dtype in (torch.float32, torch.bfloat16):
+                ins = [torch.randn((2, h, 200, 64), generator=gen, device=dev)
+                       .to(dtype).requires_grad_() for h in (H, Hkv, Hkv)]
+                cot = torch.randn((2, H, 200, 64), generator=gen, device=dev)
+                kw = {"causal": True, "window": window}
+                (out,), got, want = grad_case(
+                    lambda q, k, v: flash_attention(q, k, v, **kw), ins, (cot,),
+                    lambda q, k, v: attention_ref(q, k, v, **kw))
+                check(type(out.grad_fn).__name__ == "FlashAttentionFnBackward",
+                      f"flash {dtype} group {H // Hkv}: not through the wrapper")
+                check(torch.equal(out, fa.flash_attention_cuda(*(x.detach() for x in ins),
+                                                               **kw)),
+                      "flash: the wrapper's forward is not the kernel's output")
+                check(len(got) == 3, "flash: an input got no gradient")
+                name = str(dtype).split(".")[-1]
+                errs[name].append(grad_errors(got, want, MAX_ABS[dtype], REL_L2[dtype],
+                                              f"flash {name} group {H // Hkv} {kw}"))
+                cases += 1
+    wkv = []
+    for s0_grad in (False, True):
+        B, L, H, N = 2, 77, 4, 64
+        r, k, v, _w, u, s0 = wkv_inputs(gen, B, L, H, N)
+        if not s0_grad:
+            s0 = torch.zeros_like(s0)
+        ins = [r.requires_grad_(), k.requires_grad_(), v.requires_grad_(),
+               _w.requires_grad_(), u.requires_grad_(), s0.requires_grad_(s0_grad)]
+        cots = (torch.randn((B, L, H, N), generator=gen, device=dev),
+                torch.randn((B, H, N, N), generator=gen, device=dev))
+        outs, got, want = grad_case(lambda *a: wkv6(*a, chunk=32), ins, cots,
+                                    lambda *a: wkv_chunked_ref(*a, chunk=32))
+        check(type(outs[0].grad_fn).__name__ == "Wkv6FnBackward",
+              "wkv6: not through the wrapper")
+        direct = wk.wkv6_cuda(*(x.detach() for x in ins), chunk=32)
+        check(all(torch.equal(a, b) for a, b in zip(outs, direct)),
+              "wkv6: the wrapper's forward is not the kernel's output")
+        check(len(got) == 5 + s0_grad, "wkv6: an input got no gradient")
+        wkv.append(grad_errors(got, want, WKV_ABS, WKV_REL_L2, f"wkv6 s0 grad {s0_grad}"))
+        cases += 1
+    emit("train_grad_kernels", cases=cases, forward_bitwise=True,
+         flash={n: worst_of(e) for n, e in errs.items()}, wkv6=worst_of(wkv),
+         flash_tol={"float32": [MAX_ABS[torch.float32], REL_L2[torch.float32]],
+                    "bfloat16": [MAX_ABS[torch.bfloat16], REL_L2[torch.bfloat16]]},
+         wkv6_tol=[WKV_ABS, WKV_REL_L2])
+
+
+def card_vs_cpu_step(cfg, data_cfg, ckpt_dir: Path) -> dict:
+    """One train step from the same parameters (``init_params(seed=0)`` on
+    the card, carried to the CPU by ``params_to_arrays``) and the same
+    batch on the card and on the CPU: the loss at TRAIN_LOSS_RTOL, each
+    gradient leaf (the reference's stacked layout) within relative L2
+    TRAIN_GRAD_REL_L2.  Returns the worst of each and the two step times."""
+    import numpy as np
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models.convert import (array_from_tensor, params_from_arrays,
+                                            params_to_arrays, reference_layout)
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    batch = SyntheticTokenPipeline(data_cfg).batch_at(0)
+    card = Trainer(cfg, TrainerConfig(ckpt_dir=str(ckpt_dir)), data_cfg=data_cfg)
+    cpu = Trainer(cfg, TrainerConfig(ckpt_dir=str(ckpt_dir)), data_cfg=data_cfg,
+                  device="cpu")
+    model, st = card.init_state()
+    cpu_model = params_from_arrays(params_to_arrays(model), cfg, device="cpu")
+    cpu_model.requires_grad_(True)
+    cpu_st = adamw_init(list(cpu_model.parameters()), cpu.opt_cfg)
+    card_s, m = host_s(lambda: card.train_step(model, st, card.device_batch(batch)))
+    t0 = time.perf_counter()
+    m_cpu = cpu.train_step(cpu_model, cpu_st, cpu.device_batch(batch))
+    cpu_s = time.perf_counter() - t0
+    rels = {}
+    ps, cps = list(model.parameters()), list(cpu_model.parameters())
+    for path, idx in reference_layout(model).items():
+        # a reference leaf: the layer slices of a block leaf, stacked
+        got, want = (np.concatenate([array_from_tensor(p[j].grad).ravel() for j in idx])
+                     .astype(np.float64) for p in (ps, cps))
+        rels[path] = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+    del ps, cps
+    del model, st, cpu_model, cpu_st
+    worst = max(rels, key=rels.get)
+    loss, loss_cpu = float(m["loss"]), float(m_cpu["loss"])
+    loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"{cfg.name}: card loss {loss}, CPU {loss_cpu}")
+    check(rels[worst] <= TRAIN_GRAD_REL_L2,
+          f"{cfg.name}: gradient {worst} relative L2 {rels[worst]} card against CPU")
+    return {"loss_card": loss, "loss_cpu": loss_cpu, "loss_rel": loss_rel,
+            "loss_rtol": TRAIN_LOSS_RTOL, "grad_leaves": len(rels),
+            "grad_worst_leaf": worst, "grad_worst_rel_l2": rels[worst],
+            "grad_rel_l2_tol": TRAIN_GRAD_REL_L2, "card_step_s": card_s,
+            "cpu_step_s": cpu_s}
+
+
+def same_state(a: dict, b: dict) -> bool:
+    """Two state trees (numpy leaves) equal bit for bit."""
+    import numpy as np
+
+    return a.keys() == b.keys() and all(
+        same_state(a[k], b[k]) if isinstance(a[k], dict)
+        else (a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])) for k in a)
+
+
+def phase_train_100m() -> dict:
+    """``repro_torch.launch.train.main`` with the launcher's defaults
+    (dense-100m, float32: the float32 flash kernel at head_dim 64; B = 8,
+    S = 256) for TRAIN_STEPS steps, checkpoints under build/; the loss
+    falls.  Then a run stopped at TRAIN_STOP and restarted to TRAIN_STEPS:
+    the restore gives the stopped run's state bit for bit and the
+    restarted losses are the uninterrupted run's within TRAIN_RESUME_TOL.
+    Then one step on the card against the CPU.  Returns the launches of the
+    launcher's run."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig, data_config_for
+
+    base = ROOT / "build" / "train_100m"
+    shutil.rmtree(base, ignore_errors=True)
+    reset_launches()
+    whole = train.main(["--steps", str(TRAIN_STEPS), "--ckpt-dir", str(base / "whole")])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    losses = whole["losses"]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), "train_100m losses")
+    check(whole["loss_last"] < whole["loss_first"],
+          f"train_100m: mean of the last 5 losses {whole['loss_last']} not below "
+          f"the first {whole['loss_first']}")
+    check(launches["flash_attention"] > 0, "train_100m never launched the flash kernel")
+    cfg = train.preset_100m()
+    dc = data_config_for(cfg, 256, 8)
+
+    def trainer(steps):
+        return Trainer(cfg, TrainerConfig(steps=steps, ckpt_dir=str(base / "cut")),
+                       data_cfg=dc)
+
+    first = trainer(TRAIN_STOP)
+    s_first = first.run()
+    at_stop = first.state_tree(first.model, first.opt_state)
+    step_ms = float(np.median(first.monitor.durations)) * 1e3
+    del first
+    again = trainer(TRAIN_STEPS)
+    model, st = again.init_state()
+    again.restore(TRAIN_STOP, model, st)
+    check(same_state(again.state_tree(model, st), at_stop),
+          f"the step-{TRAIN_STOP} checkpoint does not restore the stopped state bit for bit")
+    del model, st, at_stop
+    s_rest = again.run()
+    rest = np.asarray(s_rest["losses"])
+    want = np.asarray(losses[TRAIN_STOP:])
+    resume_rel = float(np.max(np.abs(rest - want) / np.abs(want)))
+    check(len(rest) == TRAIN_STEPS - TRAIN_STOP and resume_rel <= TRAIN_RESUME_TOL,
+          f"restarted losses {rest.tolist()} against {want.tolist()}")
+    del again
+    xcheck = card_vs_cpu_step(cfg, dc, base / "xcheck")
+    shutil.rmtree(base, ignore_errors=True)
+    emit("train_100m", arch=cfg.name, dtype=cfg.dtype, n_params=cfg.n_params(),
+         batch=dc.global_batch, seq=dc.seq_len, steps=TRAIN_STEPS,
+         loss_first=whole["loss_first"], loss_last=whole["loss_last"],
+         losses=losses, wall_s=whole["wall_s"], median_step_ms=step_ms,
+         tok_s=dc.global_batch * dc.seq_len / step_ms * 1e3,
+         stragglers=whole["stragglers"], stop_at=TRAIN_STOP,
+         stopped_first=s_first["loss_first"], restored_bitwise=True,
+         resume_max_rel=resume_rel, resume_tol=TRAIN_RESUME_TOL,
+         launches=launches, card_vs_cpu=xcheck)
+    return launches
+
+
+def train_timed(phase: str, cfg, reduced: dict, mixer: str) -> dict:
+    """TRAIN_TIMED eager steps after one warm-up, bf16 parameters and
+    float32 moments, B x S = TRAIN_BATCH x TRAIN_SEQ from the pipeline;
+    every loss and gradient norm finite, every parameter with a finite
+    gradient, every mixer kernel call on its route.  Returns the launches."""
+    import math
+    import shutil
+    import statistics
+
+    import torch
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig, data_config_for
+
+    dc = data_config_for(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    tr = Trainer(cfg, TrainerConfig(ckpt_dir=str(ROOT / "build" / phase)), data_cfg=dc)
+    init_s, (model, st) = host_s(tr.init_state)
+    state_bytes = sum(p.numel() * p.element_size() * 2 for p in model.parameters()) + sum(
+        m.numel() * m.element_size() for m in st["m"] + st["v"])
+    pipe = SyntheticTokenPipeline(dc)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, metrics = [], []
+    for step in range(TRAIN_TIMED + 1):
+        batch = tr.device_batch(pipe.batch_at(step))
+        secs, m = host_s(lambda: tr.train_step(model, st, batch))
+        times.append(secs)
+        metrics.append({k: float(v) for k, v in m.items()})
+        check(all(map(math.isfinite, metrics[-1].values())),
+              f"{phase} step {step}: {metrics[-1]}")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in model.parameters()), f"{phase}: a parameter got no finite gradient")
+    steps = TRAIN_TIMED + 1
+    per_step = cfg.n_layers * (2 if cfg.remat else 1)   # remat runs it again
+    if mixer == "attn":
+        check(launches["flash_attention"] == launches["flash_attention_tc"]
+              == steps * per_step,
+              f"{phase}: {launches['flash_attention']} flash launches, "
+              f"{launches['flash_attention_tc']} on the tensor cores, "
+              f"{steps} steps x {per_step} (forward and remat)")
+    else:
+        check(launches["wkv6"] == launches["wkv6_chunked"] == steps * per_step,
+              f"{phase}: {launches['wkv6']} wkv6 calls, {launches['wkv6_chunked']} "
+              f"chunked, {steps} steps x {per_step} (forward and remat)")
+    median = statistics.median(times[1:])
+    batch = tr.device_batch(pipe.batch_at(steps))
+    extra = {}
+    if mixer == "rwkv6":
+        extra["wkv_min_head_rms"] = wkv_head_rms(model, batch)
+    split = step_split(tr, model, st, batch)
+    del model, st, tr
+    shutil.rmtree(ROOT / "build" / phase, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(phase, arch=cfg.name, dtype=cfg.dtype, reduced=reduced, n_params=cfg.n_params(),
+         batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=steps, warmup=1, remat=cfg.remat,
+         init_s=init_s, first_step_s=times[0], step_s=times[1:], median_step_s=median,
+         tok_s=TRAIN_BATCH * TRAIN_SEQ / median, peak_memory_bytes=peak,
+         state_bytes=state_bytes, losses=[m["loss"] for m in metrics],
+         grad_norms=[m["grad_norm"] for m in metrics], launches=launches,
+         split=split, **extra)
+    return launches
+
+
+def wkv_head_rms(model, batch) -> list[float]:
+    """Each RWKV layer's smallest per-head RMS of the wkv output over one
+    batch, where the time mix divides by it (``max(rms, 1e-6)``): a forward
+    without autograd, the kernel's outputs recorded."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad(), Recorder(wk, ["wkv6"]) as rec:
+        T.loss_fn(model, model.cfg, batch)
+    return [float(y.square().mean(-1).sqrt().min()) for _n, _a, (y, _s) in rec.calls]
+
+
+def step_split(tr, model, st, batch) -> dict:
+    """One more step taken apart as ``Trainer.train_step`` runs it: host
+    seconds, each ending in a synchronize, of the forward and loss, the
+    backward (with remat's second forward and the kernels' recomputed plain
+    backward) and the AdamW update."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_update
+
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    fwd, loss = host_s(lambda: T.loss_fn(model, model.cfg, batch))
+    bwd, _ = host_s(loss.backward)
+    upd, _ = host_s(lambda: adamw_update([p.grad for p in params], st, params,
+                                         tr.opt_cfg))
+    return {"forward_s": fwd, "backward_s": bwd, "adamw_s": upd}
+
+
+def phase_train_yi() -> dict:
+    cfg, reduced = cut_config(LM_ARCH, TRAIN_YI_LAYERS)
+    return train_timed("train_yi", cfg, reduced, "attn")
+
+
+def phase_train_rwkv() -> tuple[dict, dict]:
+    """rwkv6-1.6b at full width and depth (:func:`train_timed`), then cut to
+    RWKV_CPU_LAYERS layers in float32: one step on the card against the CPU
+    at RWKV_CPU_SHAPE.  Returns the launches of both."""
+    import dataclasses
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.trainer import data_config_for
+
+    launches = train_timed("train_rwkv", get_config(RWKV_ARCH), {}, "rwkv6")
+    cfg32, reduced = cut_config(RWKV_ARCH, RWKV_CPU_LAYERS)
+    cfg32 = dataclasses.replace(cfg32, dtype="float32")
+    B, S = RWKV_CPU_SHAPE
+    reset_launches()
+    ckpt = ROOT / "build" / "train_rwkv_f32"
+    xcheck = card_vs_cpu_step(cfg32, data_config_for(cfg32, S, B), ckpt)
+    torch.cuda.synchronize()
+    f32_launches = read_launches()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(f32_launches["wkv6"] == f32_launches["wkv6_chunked"] == 2 * RWKV_CPU_LAYERS,
+          f"train_rwkv_f32: {f32_launches['wkv6']} wkv6 calls")
+    emit("train_rwkv_f32", arch=cfg32.name, dtype=cfg32.dtype, reduced=reduced,
+         batch=B, seq=S, launches=f32_launches, card_vs_cpu=xcheck)
+    return launches, f32_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2414,6 +2795,7 @@ def main() -> int:
         print(f"chip_smoke: the port's sources are not under {SRC}",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(SRC))
     torch.cuda.set_device(0)
     # the plain versions are the reference: full float32 products
@@ -2564,7 +2946,27 @@ def main() -> int:
              **crosscheck_f32(cfg))
         gc.collect()
         torch.cuda.empty_cache()
-    emit("timing", analysis_peak_memory_bytes=analysis_peak,
+    # ---- training: the kernels' gradients, then each training path ----
+    t_train = time.perf_counter()
+    phase_train_grad_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    wkv = next(r for r in rows if r["name"] == "wkv6")
+    for tag, run in (("train_100m", phase_train_100m), ("train_yi", phase_train_yi)):
+        counts = run()
+        flash["launches_by_path"][tag] = counts["flash_attention"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    flash["launches_by_path_note"] = ("train_*: forward and remat's second "
+                                      "forward; train_100m on the float32 kernel")
+    rwkv_counts, f32_counts = phase_train_rwkv()
+    wkv["launches_by_phase"]["train_rwkv"] = rwkv_counts["wkv6"]
+    wkv["launches_by_phase"]["train_rwkv_f32"] = f32_counts["wkv6"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("timing", script_s=time.perf_counter() - t_start,
+         train_phases_s=time.perf_counter() - t_train,
+         analysis_peak_memory_bytes=analysis_peak,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -26,14 +26,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sliding-window size w — query i attends keys in (i-w, i] (Mistral and
     h2o-danube convention).  Returns (B, H, S, D) in q's dtype; scores and
     softmax are float32, masked scores ``-inf``.  The (S, S) score tensor is
-    updated in place to hold one copy of it.
+    updated in place to hold one copy of it, unless an input needs a
+    gradient: then the same steps run out of place, so that autograd keeps
+    what each step's backward reads.
     """
     B, H, S, D = q.shape
     group = H // k.shape[1]
     kr = k.repeat_interleave(group, dim=1).float()
     vr = v.repeat_interleave(group, dim=1).float()
     s = torch.matmul(q.float(), kr.transpose(-1, -2))
-    s /= torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
+    scale = torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
     qi = torch.arange(S, device=q.device)[:, None]
     kj = torch.arange(S, device=q.device)[None, :]
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
@@ -41,10 +43,17 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kj <= qi
     if window is not None:
         mask &= kj > qi - window
-    s.masked_fill_(~mask, float("-inf"))
-    s -= s.amax(dim=-1, keepdim=True)
-    s.exp_()
-    s /= s.sum(dim=-1, keepdim=True)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        s = (s / scale).masked_fill(~mask, float("-inf"))
+        s = (s - s.amax(dim=-1, keepdim=True)).exp()
+        s = s / s.sum(dim=-1, keepdim=True)
+    else:
+        s /= scale
+        s.masked_fill_(~mask, float("-inf"))
+        s -= s.amax(dim=-1, keepdim=True)
+        s.exp_()
+        s /= s.sum(dim=-1, keepdim=True)
     return torch.matmul(s, vr).to(q.dtype)
 
 

@@ -13,8 +13,10 @@ names and arguments:
 ``params`` is a :class:`DecoderLM`.  Build one from a parameter tree in the
 reference layout: ``DecoderLM(cfg, init_params(cfg, seed=0))``, or
 :func:`repro_torch.models.convert.params_from_arrays` for the reference's
-own parameters.  The ``rwkv_bf16`` variant is not ported yet and raises
-``NotImplementedError``.
+own parameters.  Its parameters are frozen, as serving wants them;
+``model.requires_grad_(True)`` makes them trainable, as
+:class:`repro_torch.runtime.trainer.Trainer` does.  The ``rwkv_bf16``
+variant is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import Attention, attn_decode, attn_forward
@@ -161,12 +164,31 @@ class DecoderLM(nn.Module):
         return h @ w
 
     def forward(self, batch: dict) -> torch.Tensor:
+        """Logits of the whole sequence.  With ``cfg.remat`` and autograd
+        on, each scan group (``cfg.period`` layers) runs under
+        ``torch.utils.checkpoint``, as the reference wraps its group body in
+        ``jax.checkpoint``: the backward runs the group's forward again, and
+        the numbers are those without remat."""
         h = self.embed_in(batch)
         B, S = h.shape[:2]
         positions = _positions(self.cfg, batch, B, S, h.device)
-        for blk in self.blocks:
-            h = blk(h, positions)
+        P = self.cfg.period
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for g in range(0, len(self.blocks), P):
+            group = self.blocks[g:g + P]
+            if remat:
+                h = checkpoint(_group_forward, group, h, positions,
+                               use_reentrant=False)
+            else:
+                h = _group_forward(group, h, positions)
         return self.logits_out(h)
+
+
+def _group_forward(blocks: nn.ModuleList, h: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    for blk in blocks:
+        h = blk(h, positions)
+    return h
 
 
 def _slice(tree: dict, g: int) -> dict:

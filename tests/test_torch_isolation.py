@@ -27,6 +27,17 @@ def test_sources_import_neither_jax_nor_repro(path):
     assert not hits, f"{path.relative_to(ROOT)} imports {sorted(set(hits))}"
 
 
+_ML_DTYPES = re.compile(r"^\s*(?:import|from)\s+ml_dtypes(?:\.|\s|$)", re.M)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_ml_dtypes(path):
+    """The card's machine has no ml_dtypes (the reference's checkpoint store
+    imports it): bf16 crosses as its 16-bit pattern instead."""
+    assert not _ML_DTYPES.findall(path.read_text()), str(path.relative_to(ROOT))
+
+
 def test_cpu_sweep_loads_neither_jax_nor_repro():
     code = """
 import sys
@@ -509,3 +520,90 @@ def test_mamba_on_the_card_matches_cpu(cuda):
     st = mamba.mamba_init_state(cfg, 2, torch.float32, cuda)
     y, st = mamba.mamba_decode(pc, x[:, :1].to(cuda), cfg, st)
     torch.testing.assert_close(y.cpu(), want[:, :1], rtol=1e-4, atol=1e-4)
+
+
+def test_cpu_training_loads_neither_jax_nor_repro_nor_ml_dtypes(tmp_path):
+    code = """
+import sys
+from repro_torch.launch import train
+out = train.main(["--device", "cpu", "--arch", "rwkv6-1.6b", "--smoke",
+                  "--steps", "1", "--seq", "40", "--batch", "2",
+                  "--ckpt-dir", "ckpt"])
+assert out["final_step"] == 1
+again = train.main(["--device", "cpu", "--arch", "rwkv6-1.6b", "--smoke",
+                    "--steps", "2", "--seq", "40", "--batch", "2",
+                    "--ckpt-dir", "ckpt"])
+assert again["final_step"] == 2 and len(again["losses"]) == 1
+from repro_torch.kernels.wkv6 import kernel as wk
+assert wk._lib is None and wk.launches["wkv6"] == 0, "a CPU run used the CUDA kernel"
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
+print("LOADED", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_training_defaults_to_the_card(monkeypatch, tmp_path):
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("yi-9b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path / "t")))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "yi-9b", "--smoke", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / "l")])
+    mgr = CheckpointManager(CheckpointConfig(str(tmp_path / "c"), async_save=False))
+    mgr.save(1, {"a": torch.ones(3)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mgr.restore(1, {"a": torch.ones(3)})
+    assert torch.equal(mgr.restore(1, {"a": torch.ones(3)}, device="cpu")["a"],
+                       torch.ones(3))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_inputs_needing_a_gradient_reach_the_autograd_wrappers(cuda, dtype):
+    """On the card, flash attention and wkv6 inputs that need a gradient go
+    through the autograd wrappers: the kernel launches once in the forward,
+    every input gets its gradient from the plain version's recompute, and
+    inputs that need none call the kernel directly."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.wkv6.ops import Wkv6Fn
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, 4, 70, 64), generator=gen, device=cuda).to(dtype).requires_grad_()
+    k = torch.randn((1, 2, 70, 64), generator=gen, device=cuda).to(dtype).requires_grad_()
+    v = torch.randn((1, 2, 70, 64), generator=gen, device=cuda).to(dtype).requires_grad_()
+    before = fa.launches["flash_attention"]
+    out = flash_attention(q, k, v, causal=True)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == \
+        f"{FlashAttentionFn.__name__}Backward"
+    out.float().square().sum().backward()
+    assert fa.launches["flash_attention"] == before + 1
+    assert all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+
+    r, kk, vv = (torch.randn((1, 70, 2, 64), generator=gen, device=cuda).requires_grad_()
+                 for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((1, 70, 2, 64), generator=gen, device=cuda)))
+    u = (0.1 * torch.randn((2, 64), generator=gen, device=cuda)).requires_grad_()
+    s0 = torch.zeros((1, 2, 64, 64), device=cuda)
+    before = dict(wk.launches)
+    y, s = wkv6(r, kk, vv, w, u, s0, chunk=32)
+    assert type(y.grad_fn).__name__ == f"{Wkv6Fn.__name__}Backward"
+    y.square().sum().backward()
+    assert wk.launches["wkv6_chunked"] == before["wkv6_chunked"] + 1
+    assert all(x.grad is not None for x in (r, kk, vv, u))
