@@ -92,7 +92,20 @@ state bit for bit and its losses against the uninterrupted run's; one step
 on the card against the CPU), train_yi (yi-9b at full width, 16 of 48
 layers, bf16, B = 4, S = 2048, every flash call on the tensor cores),
 train_rwkv (rwkv6-1.6b at full width and depth, every wkv6 call chunked)
-and train_rwkv_f32 (2 layers in float32, a step against the CPU), then the
+and train_rwkv_f32 (2 layers in float32, a step against the CPU); the bf16
+variants: wkv6_bf16_kernels (after wkv6_kernels: wkv6's bf16 mode on both
+routes against the bf16 plain version at the rwkv6-1.6b prefill shape, an L
+off the chunk multiple with and without s0, and a decode step; timed beside
+the float32 mode), attn_bf16_card (after lm_serve: yi-9b cut to 2 layers,
+a prefill with and one without attn_bf16, bit for bit equal) and
+lm_rwkv_bf16 (after lm_serve_rwkv: rwkv6-1.6b with rwkv_bf16, prefill and 8
+cached decode steps against the default variant, every wkv6 call under
+wkv6_bf16); then the perf model: perfmodel_steps (train_100m, train_yi,
+train_rwkv and lm_prefill as measured above, each counted on a 1x1 mesh:
+roofline terms, the BottleMod step model's prediction, every step at or
+above its compute bound) and dryrun_cells (``python -m
+repro_torch.launch.dryrun`` in a child process for rwkv6-1.6b decode_32k
+and yi-9b train_4k on the 256-card fake mesh); then the
 per-kernel line with launches on each path, errors and times at each
 path's shapes (also with the L2 flushed between launches, the "tile"
 route on the same inputs, and ptxas registers and spills; for the crossing
@@ -200,9 +213,31 @@ TRAIN_YI_LAYERS = 16
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 4, 2048, 5
 #: rwkv6-1.6b cut to 2 layers in float32 for the card-against-CPU step
 RWKV_CPU_LAYERS, RWKV_CPU_SHAPE = 2, (1, 256)
+#: wkv6's bf16 mode against the bf16 plain version on the same card tensors
+#: (relative L2, y and s_final): both round at the reference's points and
+#: products of bf16 values are exact in float32, so only the order of the
+#: float32 sums differs; the cases (B, L, H, N, s0): the rwkv6-1.6b prefill,
+#: an L off the chunk multiple with and without s0, a decode step
+WKV_BF16_REL_L2 = 2e-3
+WKV_BF16_CASES = ((2, 4096, 32, 64, True), (2, 333, 32, 64, True),
+                  (2, 333, 32, 64, False), (8, 1, 32, 64, True))
+#: the rwkv_bf16 variant's logits against the default's, relative L2: twice
+#: the recorded 5.2e-2 bf16 batch-split floor (ROADMAP queue 3)
+RWKV_BF16_TOL = 1e-1
+RWKV_BF16_DECODE = 8
+#: yi-9b cut to 2 layers for the attn_bf16 check
+ATTN_BF16_LAYERS = 2
+#: the dry-run cells run on the card's host, each in its own process
+DRYRUN_CELLS = (("rwkv6-1.6b", "decode_32k"), ("yi-9b", "train_4k"))
+
+
+#: every phase's JSON line, by phase, for the phases that reuse what an
+#: earlier one measured (perfmodel_steps)
+EMITTED: dict[str, dict] = {}
 
 
 def emit(phase: str, **kv) -> None:
+    EMITTED[phase] = kv
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
@@ -931,12 +966,15 @@ def wkv_inputs(gen, B: int, L: int, H: int, N: int, scale: float = 2.0):
 
 
 def wkv_err(out, args, kw) -> dict:
-    """One wkv6 call against the plain version on the same inputs, on y and
-    on s_final: max abs error (and its ratio to the bar 2e-3 * max(1, max
-    |plain|)) and relative L2 error."""
+    """One wkv6 call against the plain version on the same inputs (the
+    same ``chunk`` and ``compute_dtype``), on y and on s_final: max abs
+    error (and its ratio to the bar 2e-3 * max(1, max |plain|), held in
+    float32) and relative L2 error (WKV_REL_L2 in float32,
+    WKV_BF16_REL_L2 in the bf16 mode)."""
     import torch
     from repro_torch.kernels.wkv6 import wkv_chunked_ref
 
+    bf16 = kw.get("compute_dtype") == torch.bfloat16
     res = {"max_abs_err": 0.0, "rel_l2": 0.0, "bar_ratio": 0.0}
     what = f"wkv6 {tuple(args[0].shape)} {kw}"
     for name, got, want in zip(("y", "s_final"), out, wkv_chunked_ref(*args, **kw)):
@@ -947,8 +985,9 @@ def wkv_err(out, args, kw) -> dict:
         bar = WKV_ABS * max(1.0, float(want.abs().max()))
         rel = float(torch.linalg.vector_norm(diff) /
                     torch.linalg.vector_norm(want).clamp(min=1e-30))
-        check(err <= bar, f"{what}: {name} max abs error {err} > {bar}")
-        check(rel <= WKV_REL_L2, f"{what}: {name} relative L2 error {rel}")
+        check(bf16 or err <= bar, f"{what}: {name} max abs error {err} > {bar}")
+        check(rel <= (WKV_BF16_REL_L2 if bf16 else WKV_REL_L2),
+              f"{what}: {name} relative L2 error {rel}")
         res = {"max_abs_err": max(res["max_abs_err"], err),
                "rel_l2": max(res["rel_l2"], rel),
                "bar_ratio": max(res["bar_ratio"], err / bar)}
@@ -1165,7 +1204,7 @@ def wkv_row(launches: dict, err: float, first) -> dict:
     serial_ms = cuda_ms(lambda: wk.launch_serial(*args, **kw), iters=5)
     y, scratch = wk.launch_intra(*args, **kw)
     phase_ms = [cuda_ms(lambda: wk.launch_intra(*args, **kw)),
-                cuda_ms(lambda: wk.launch_scan(args[5], y, scratch, **kw))]
+                cuda_ms(lambda: wk.launch_scan(args[5], y, scratch, chunk=chunk))]
     scratch_bytes = 4 * scratch.numel()
     del y, scratch
     b_ms, b_by = wkv_bound(args, chunk)
@@ -1191,6 +1230,183 @@ def wkv_row(launches: dict, err: float, first) -> dict:
                              "chunked_ms": dec_chunked_ms,
                              "plain_ms": dec_plain_ms, "bound_ms": dec_bound,
                              "bound_by": dec_by}}
+
+
+def phase_wkv6_bf16_kernels():
+    """wkv6's bf16 mode (the rwkv_bf16 variant) on both routes against the
+    bf16 plain version on the same card tensors, at WKV_BF16_CASES, chunk
+    32; each also against the float32 kernel (what the rounding moves).  The
+    bf16 and float32 chunked routes timed in turns at the prefill shape, the
+    serial routes at the decode shape.  Returns the bf16 chunked call's
+    inputs at the prefill shape."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import wkv_chunked_ref
+
+    t0 = time.perf_counter()
+    bf = {"chunk": 32, "compute_dtype": torch.bfloat16}
+    run = {"chunked": wk.launch_chunked, "serial": wk.launch_serial}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases, times, prefill = [], {}, None
+    for B, L, H, N, with_s0 in WKV_BF16_CASES:
+        args = wkv_inputs(gen, B, L, H, N)
+        if not with_s0:
+            args = (*args[:5], torch.zeros_like(args[5]))
+        f32 = wk.launch_chunked(*args, chunk=32)
+        case = {"shape": [B, L, H, N], "s0": with_s0}
+        for rt in wk.ROUTES:
+            out = run[rt](*args, **bf)
+            torch.cuda.synchronize()
+            case[rt] = {**wkv_err(out, args, bf),
+                        "rel_l2_vs_f32_kernel": max(rel_l2(o, w) for o, w in zip(out, f32))}
+            del out
+        cases.append(case)
+        if (B, L) == (2, 4096):
+            prefill = (args, bf)
+            times["prefill"] = {"f32_ms": cuda_ms(lambda: run["chunked"](*args, chunk=32)),
+                                "bf16_ms": cuda_ms(lambda: run["chunked"](*args, **bf))}
+            times["prefill"]["bf16_ms_2"] = cuda_ms(lambda: run["chunked"](*args, **bf))
+            times["prefill"]["f32_ms_2"] = cuda_ms(lambda: run["chunked"](*args, chunk=32))
+            times["prefill"]["plain_bf16_ms"] = cuda_ms(
+                lambda: wkv_chunked_ref(*args, **bf), iters=3)
+        if L == 1:
+            times["decode"] = {"f32_ms": cuda_ms(lambda: run["serial"](*args, chunk=32),
+                                                 iters=100),
+                               "bf16_ms": cuda_ms(lambda: run["serial"](*args, **bf),
+                                                  iters=100)}
+        del f32
+    emit("wkv6_bf16_kernels", cases=cases, times=times, rel_l2_tol=WKV_BF16_REL_L2,
+         seconds=time.perf_counter() - t0)
+    return prefill
+
+
+def phase_lm_rwkv_bf16(prefill_case) -> tuple[dict, dict]:
+    """rwkv6-1.6b at full width and depth in bf16 with the rwkv_bf16
+    variant, its weights those of the default model (init_params(seed=0)):
+    the lm_prefill_rwkv prefill and RWKV_BF16_DECODE cached decode steps,
+    every wkv6 call counted under wkv6_bf16 and held against the bf16 plain
+    version; the logits against the default variant's at RWKV_BF16_TOL.
+    Returns (launches, the wkv6_bf16 kernel row)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import wkv_chunked_ref
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+
+    t0 = time.perf_counter()
+    cfg = get_config(RWKV_ARCH)
+    var = dataclasses.replace(cfg, rwkv_bf16=True)
+    tree = init_params(cfg, seed=0)
+    base, model = T.DecoderLM(cfg, tree), T.DecoderLM(var, tree)
+    del tree
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                                     generator=gen, device="cuda")}
+
+    def decode(m, c):
+        cache = T.init_cache(c, LM_BATCH, RWKV_BF16_DECODE)
+        steps = []
+        for t in range(RWKV_BF16_DECODE):
+            logits, cache = T.decode_step(m, c, cache,
+                                          {"tokens": batch["tokens"][:, t:t + 1]}, t)
+            steps.append(logits)
+        return steps
+
+    with torch.inference_mode():
+        want, want_steps = T.prefill(base, cfg, batch), decode(base, cfg)
+        # the prefill's calls are held against the plain version afterwards;
+        # a decode call's s0 is the cache's state, updated in place after it
+        # (the serial route is held in wkv6_bf16_kernels)
+        reset_launches()
+        with Recorder(wk, ["wkv6"]) as rec:
+            secs, got = host_s(lambda: T.prefill(model, var, batch))
+        dsecs, got_steps = host_s(lambda: decode(model, var))
+        launches = read_launches()
+        errs = [wkv_err(out, args, kw) for (_n, args, out), kw in zip(rec.calls, rec.kwargs)]
+        del rec
+    n = cfg.n_layers
+    check(launches["wkv6"] == 0 and launches["wkv6_bf16"] == n * (1 + RWKV_BF16_DECODE)
+          and launches["wkv6_bf16_chunked"] == n
+          and launches["wkv6_bf16_serial"] == n * RWKV_BF16_DECODE,
+          f"rwkv_bf16: launches {launches}")
+    check(all(bool(torch.isfinite(x).all()) for x in [got, *got_steps]), "logits not finite")
+    rel = rel_l2(got, want)
+    rel_steps = [rel_l2(g, w) for g, w in zip(got_steps, want_steps)]
+    check(max(rel, *rel_steps) <= RWKV_BF16_TOL,
+          f"rwkv_bf16 logits against the default: prefill {rel}, decode {rel_steps}")
+    del base, model, want, got, want_steps, got_steps
+    torch.cuda.empty_cache()
+    worst = worst_of(errs)
+    emit("lm_rwkv_bf16", arch=cfg.name, dtype=cfg.dtype, variant="rwkv_bf16",
+         batch=LM_BATCH, seq=LM_SEQ, decode_steps=RWKV_BF16_DECODE, prefill_s=secs,
+         decode_s=dsecs,
+         launches=launches, wkv6_calls=len(errs), **worst,
+         rel_l2_tol=WKV_BF16_REL_L2, prefill_rel_l2_vs_default=rel,
+         decode_rel_l2_vs_default=rel_steps, tol_vs_default=RWKV_BF16_TOL,
+         seconds=time.perf_counter() - t0)
+    # the kernel row: the bf16 chunked route at the prefill shape
+    args, kw = prefill_case
+    ms = cuda_ms(lambda: wk.wkv6_cuda(*args, **kw))
+    plain_ms = cuda_ms(lambda: wkv_chunked_ref(*args, **kw), iters=3)
+    ms2 = cuda_ms(lambda: wk.wkv6_cuda(*args, **kw))
+    b_ms, b_by = wkv_bound(args, kw["chunk"])
+    row = {"name": "wkv6_bf16", "route": "cuda", "source": WKV6["source"],
+           "replaces": WKV6["replaces"],
+           "replaces_note": ("the same TPU kernel's work in the reference's bf16 form, "
+                             "which is XLA there (src/repro/models/rwkv.py:45), not "
+                             "Pallas: the wkv6 kernels' bf16 mode"),
+           "launches": launches["wkv6_bf16"],
+           "launches_chunked": launches["wkv6_bf16_chunked"],
+           "launches_serial": launches["wkv6_bf16_serial"],
+           "launches_by_phase": {"lm_rwkv_bf16": launches["wkv6_bf16"]},
+           "max_abs_err": worst["max_abs_err"], "rel_l2": worst["rel_l2"],
+           "ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes the wkv recurrence",
+           "shape": {"r": list(args[0].shape), "chunk": kw["chunk"],
+                     "compute_dtype": "bfloat16"}}
+    return launches, row
+
+
+def phase_attn_bf16_card():
+    """yi-9b at full width cut to ATTN_BF16_LAYERS layers, bf16: one prefill
+    without and one with attn_bf16, the same weights.  On the card
+    attention goes through the flash kernel, which computes its softmax in
+    float32 whatever the variant says (as the reference's TPU route does):
+    the logits are equal bit for bit."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+
+    t0 = time.perf_counter()
+    cfg, reduced = cut_config(LM_ARCH, ATTN_BF16_LAYERS)
+    var = dataclasses.replace(cfg, attn_f32=False)
+    tree = init_params(cfg, seed=0)
+    base, model = T.DecoderLM(cfg, tree), T.DecoderLM(var, tree)
+    del tree
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                                     generator=gen, device="cuda")}
+    with torch.inference_mode():
+        reset_launches()
+        want = T.prefill(base, cfg, batch)
+        got = T.prefill(model, var, batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    check(launches["flash_attention_tc"] == 2 * ATTN_BF16_LAYERS,
+          f"attn_bf16: launches {launches}")
+    check(torch.equal(got, want), "attn_bf16 changed the kernel route's logits")
+    del base, model
+    torch.cuda.empty_cache()
+    emit("attn_bf16_card", arch=cfg.name, reduced=reduced, dtype=cfg.dtype,
+         batch=LM_BATCH, seq=LM_SEQ, variant="attn_bf16", bitwise_equal=True,
+         launches=launches, seconds=time.perf_counter() - t0)
+    return launches
 
 
 def phase_sweep_fig7(paper):
@@ -2782,6 +2998,152 @@ def phase_train_rwkv() -> tuple[dict, dict]:
     return launches, f32_launches
 
 
+def count_step(cfg, shape) -> dict:
+    """The per-device counts of one step on a 1x1 mesh
+    (``repro_torch.launch.specs.count_cell`` on meta tensors, no device),
+    taken at one and two scan groups and extended linearly to the
+    config's ``n_groups``: every group runs the same ops on the same shapes,
+    so the count is exactly linear in the groups.  Returns flops, bytes
+    and the seconds it took."""
+    import dataclasses
+
+    from repro_torch.distributed import axis_rules
+    from repro_torch.launch.dryrun import flash_estimate, track_sizes
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import count_cell, make_cell
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh()
+    one_card = {"data": 1, "model": 1}
+    reps = []
+    for g in (1, 2):
+        c = dataclasses.replace(cfg, n_layers=g * cfg.period)
+        with axis_rules(mesh):
+            reps.append(count_cell(make_cell(c, shape), mesh,
+                                   track_sizes(c, shape, one_card)))
+    one, two = reps
+    n = cfg.n_groups
+    out = {key: getattr(one, key) + (n - 1) * (getattr(two, key) - getattr(one, key))
+           for key in ("flops", "bytes", "tracked_bytes")}
+    if out["tracked_bytes"] > 0:
+        out["flash_io_bytes"], out["flash_bytes"] = flash_estimate(
+            cfg, shape, one_card, out["bytes"], out["tracked_bytes"])
+    return {**out, "count_s": time.perf_counter() - t0}
+
+
+def phase_perfmodel_steps():
+    """The perf model held against the card: for the steps train_100m,
+    train_yi, train_rwkv and lm_prefill measured (their medians, not run
+    again; lm_prefill's single warm run), the same step at the same config,
+    cut and shape counted on a 1x1 mesh, its roofline terms (H100
+    constants) and the BottleMod step model's prediction with the host
+    pipeline's rate measured from ``batch_at``.  Every measured step must
+    be at or above its compute bound.  The linear extension of the counts
+    is checked once against a whole count (yi-9b's prefill)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.distributed import axis_rules
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import count_cell, make_cell
+    from repro_torch.perfmodel import roofline, stepmodel
+    from repro_torch.runtime.trainer import data_config_for
+
+    t0 = time.perf_counter()
+    steps = (
+        ("train_100m", train.preset_100m(), ShapeSpec("train_100m", 256, 8, "train"),
+         EMITTED["train_100m"]["median_step_ms"] / 1e3),
+        ("train_yi", cut_config(LM_ARCH, TRAIN_YI_LAYERS)[0],
+         ShapeSpec("train_yi", TRAIN_SEQ, TRAIN_BATCH, "train"),
+         EMITTED["train_yi"]["median_step_s"]),
+        ("train_rwkv", get_config(RWKV_ARCH),
+         ShapeSpec("train_rwkv", TRAIN_SEQ, TRAIN_BATCH, "train"),
+         EMITTED["train_rwkv"]["median_step_s"]),
+        ("lm_prefill", get_config(LM_ARCH), ShapeSpec("lm_prefill", LM_SEQ, LM_BATCH, "prefill"),
+         EMITTED["lm_prefill"]["warm_s"]),
+    )
+    out = {}
+    for name, cfg, shape, measured in steps:
+        counts = count_step(cfg, shape)
+        if name == "lm_prefill":
+            mesh = make_host_mesh()
+            with axis_rules(mesh):
+                whole = count_cell(make_cell(cfg, shape), mesh)
+            check(whole.flops == counts["flops"] and whole.bytes == counts["bytes"],
+                  f"{name}: linear count {counts} against the whole count "
+                  f"{whole.flops}, {whole.bytes}")
+        rr = roofline.roofline_terms(cfg=cfg, shape=shape, n_chips=1,
+                                     flops_per_device=counts["flops"],
+                                     bytes_per_device=counts["bytes"],
+                                     collective_bytes_per_device=0.0)
+        pipe = SyntheticTokenPipeline(data_config_for(cfg, shape.seq_len,
+                                                      shape.global_batch))
+        data_s = min(host_s(lambda i=i: pipe.batch_at(i))[0] for i in range(5))
+        pred = stepmodel.predict(stepmodel.StepModelInputs(
+            flops_per_step=counts["flops"], hbm_bytes_per_step=counts["bytes"],
+            coll_bytes_per_step=0.0, n_steps=10, data_rate_steps_per_s=1.0 / data_s))
+        flash = {}
+        if "flash_bytes" in counts:     # the score chain in the flash kernel
+            flash = {"memory_flash_s": counts["flash_bytes"] / roofline.HBM_BW,
+                     "predicted_flash_s": stepmodel.predict(stepmodel.StepModelInputs(
+                         flops_per_step=counts["flops"],
+                         hbm_bytes_per_step=counts["flash_bytes"], coll_bytes_per_step=0.0,
+                         n_steps=10, data_rate_steps_per_s=1.0 / data_s)).step_time_s}
+        check(measured >= rr["compute_s"],
+              f"{name}: measured {measured} s below the compute bound {rr['compute_s']} s")
+        out[name] = {"arch": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+                     "batch": shape.global_batch, "seq": shape.seq_len, "kind": shape.kind,
+                     **counts, "compute_s": rr["compute_s"], "memory_s": rr["memory_s"],
+                     "dominant": rr["dominant"], "data_rate_steps_per_s": 1.0 / data_s,
+                     "predicted_s": pred.step_time_s, "predicted_bottleneck": pred.dominant(),
+                     "measured_s": measured,
+                     "measured_over_predicted": measured / pred.step_time_s,
+                     "measured_over_compute": measured / rr["compute_s"], **flash}
+    emit("perfmodel_steps", steps=out, peak_flops=roofline.PEAK_FLOPS,
+         hbm_bw=roofline.HBM_BW, seconds=time.perf_counter() - t0)
+
+
+def phase_dryrun_cells():
+    """``python -m repro_torch.launch.dryrun`` in a child process for each
+    of DRYRUN_CELLS on the 256-card fake mesh (the reference's integration
+    cell, rwkv6-1.6b decode, and yi-9b's training step): status ok, 256
+    chips, the decode memory-bound, the step model's prediction from each
+    record positive."""
+    import os
+    import shutil
+
+    from repro_torch.perfmodel.stepmodel import from_dryrun_record, predict
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun_cells"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        t1 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                              "--shape", shape, "--mesh", "single", "--out", str(out_dir)],
+                             capture_output=True, text=True, timeout=900, cwd=str(ROOT),
+                             env={**os.environ, "PYTHONPATH": str(SRC)})
+        wall = time.perf_counter() - t1
+        check(res.returncode == 0, f"dry-run {arch} {shape}: exit {res.returncode}\n"
+                                   f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+        rec = json.loads((out_dir / f"{arch}_{shape}_single.json").read_text())
+        rr = rec["roofline"]
+        check(rec["status"] == "ok" and rec["chips"] == 256, f"{arch} {shape}: {rec}")
+        check(shape != "decode_32k" or rr["dominant"] == "memory",
+              f"{arch} {shape}: {rr['dominant']}-bound")
+        p = predict(from_dryrun_record(rec, n_steps=10, data_rate_steps_per_s=1e6))
+        check(p.step_time_s > 0, f"{arch} {shape}: step time {p.step_time_s}")
+        cells[f"{arch}_{shape}"] = {
+            **rec["per_device"], "dominant": rr["dominant"], "compute_s": rr["compute_s"],
+            "memory_s": rr["memory_s"], "collective_s": rr["collective_s"],
+            "useful_flops_ratio": rr["useful_flops_ratio"], "n_ops": rec["collectives"]["n_ops"],
+            "count_s": rec["count_s"], "wall_s": wall, "predicted_step_s": p.step_time_s,
+            "memory": rec["memory"], "torch": rec["torch"]}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    emit("dryrun_cells", cells=cells, seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     try:
         import torch
@@ -2813,6 +3175,7 @@ def main() -> int:
     phase_kernels()
     flash_long_case = phase_flash_kernels()
     phase_wkv6_kernels()
+    wkv_bf16_case = phase_wkv6_bf16_kernels()
 
     # ---- the analysis path, counted: sweeps and the Report's curve queries ----
     with Recorder(kernel, KERNELS) as rec:
@@ -2906,6 +3269,9 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    attn_bf16_launches = phase_attn_bf16_card()
+    gc.collect()
+    torch.cuda.empty_cache()
     rows.append(flash_row(lm_launches, flash_errs, first, flash_long_case))
     del first
     gc.collect()
@@ -2925,10 +3291,16 @@ def main() -> int:
     del first
     gc.collect()
     torch.cuda.empty_cache()
+    _bf16_launches, bf16_row = phase_lm_rwkv_bf16(wkv_bf16_case)
+    rows.append(bf16_row)
+    del wkv_bf16_case
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- the MoE and Mamba families: prefill, the launcher, float32 check ----
     flash = next(r for r in rows if r["name"] == "flash_attention")
-    flash["launches_by_path"] = {"lm_prefill": flash["launches"]}
+    flash["launches_by_path"] = {"lm_prefill": flash["launches"],
+                                 "attn_bf16_card": attn_bf16_launches["flash_attention"]}
     flash["by_shape"] = {}
     for arch, depth, tag in ((MOE_ARCH, MOE_LAYERS, "moe"),
                              (JAMBA_ARCH, JAMBA_LAYERS, "jamba")):
@@ -2964,8 +3336,18 @@ def main() -> int:
     wkv["launches_by_phase"]["train_rwkv_f32"] = f32_counts["wkv6"]
     gc.collect()
     torch.cuda.empty_cache()
-    emit("timing", script_s=time.perf_counter() - t_start,
-         train_phases_s=time.perf_counter() - t_train,
+    train_s = time.perf_counter() - t_train
+    # ---- the perf model against the steps measured, then the dry-run ----
+    phase_perfmodel_steps()
+    phase_dryrun_cells()
+    import torch.distributed
+
+    check(not torch.distributed.is_initialized(),
+          "a torch.distributed process group is left in this process")
+    new_phases = ("wkv6_bf16_kernels", "attn_bf16_card", "lm_rwkv_bf16",
+                  "perfmodel_steps", "dryrun_cells")
+    emit("timing", script_s=time.perf_counter() - t_start, train_phases_s=train_s,
+         bf16_and_perfmodel_phases_s=sum(EMITTED[p]["seconds"] for p in new_phases),
          analysis_peak_memory_bytes=analysis_peak,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(smi, flush=True)

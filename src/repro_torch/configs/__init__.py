@@ -76,16 +76,6 @@ VARIANTS: dict[str, dict] = {
 }
 
 
-#: variants the port does not honour, with the reason: its flash kernel and
-#: the kernel's plain version compute scores and softmax in f32 whatever
-#: ``attn_f32`` says, and its wkv6 kernel is float32 only, like the TPU's.
-UNSUPPORTED_VARIANTS = {
-    "attn_bf16": "attention always computes in f32",
-    "rwkv_bf16": "the wkv recurrence always computes in f32 (the bf16 "
-                 "intra-chunk form is not ported yet)",
-}
-
-
 def apply_variants(cfg: ModelConfig, names: list[str]) -> ModelConfig:
     overrides: dict = {}
     for n in names:
@@ -93,9 +83,6 @@ def apply_variants(cfg: ModelConfig, names: list[str]) -> ModelConfig:
             continue
         if n not in VARIANTS:
             raise KeyError(f"unknown variant {n!r}; choose from {sorted(VARIANTS)}")
-        if n in UNSUPPORTED_VARIANTS:
-            raise ValueError(f"variant {n!r} has no effect in this package: "
-                             f"{UNSUPPORTED_VARIANTS[n]}")
         overrides.update(VARIANTS[n])
     return dataclasses.replace(cfg, **overrides)
 

@@ -110,11 +110,41 @@
 //
 // Arithmetic: no fast math (logf, expf, IEEE division), as in the plain
 // version.
+//
+// ---- The bf16 mode (the reference's "rwkv_bf16" variant) ----
+// wkv6_launch and wkv6_intra_launch take a flag, bf16, that selects the
+// reference's bf16 form (repro/models/rwkv.py wkv_chunked with
+// compute_dtype=bfloat16, which is XLA there, not Pallas): the intra-chunk
+// operands are rounded to bf16 (round to nearest even, and back to float32)
+// at the reference's points, r, k and v where they enter att and the
+// products with v, the pairwise decays W, att before att . v, r_dec and
+// k_fut, and every product is summed in float32; the log-decay, the bonus
+// diag v (in float32 r, k, u and v) and the state stay float32.  A product
+// of two or three bf16 values is exact in float32, and a bf16 value is a
+// TF32 value with a zero low part, so the 3xTF32 products below are exact
+// on these operands: only the order of the float32 sums differs from the
+// plain version.  In this mode the whole strictly lower triangle of att
+// takes the exact pairwise form (the factored form of the off-diagonal
+// sub-blocks has no W to round), and the bonus is added after att . v
+// instead of on att's diagonal.  The scan (phase 2) is the same in both
+// modes.  The rounding is the point of this mode, not speed: a bf16 mma
+// path would be a later change.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// x rounded to bf16 and back in the bf16 mode, x itself otherwise
+template <bool kBf16>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (kBf16) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
 
 // ============================== serial route ===============================
 constexpr int kThreads = 256;
@@ -130,6 +160,7 @@ size_t smem_floats(int N, int C) {
          + C + 2 * N;            // diag, exp(total), u
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
@@ -229,8 +260,9 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
         const float* cs = scum + s * LD;
         float acc = 0.0f;
         for (int n = 0; n < N; ++n)
-          acc += rt[n] * expf(fminf(ce[n] - cs[n], 0.0f)) * ks[n];
-        satt[t * (C + 1) + s] = acc;
+          acc += rnd<kBf16>(rt[n]) * rnd<kBf16>(expf(fminf(ce[n] - cs[n], 0.0f))) *
+                 rnd<kBf16>(ks[n]);
+        satt[t * (C + 1) + s] = rnd<kBf16>(acc);
       }
     }
     __syncthreads();
@@ -239,8 +271,9 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
     for (int i = tid; i < R * N; i += kThreads) {
       const int t = i / N;
       const int n = i % N;
-      sr[t * LD + n] *= expf(scume[t * LD + n]);
-      sk[t * LD + n] *= expf(scum[(R - 1) * LD + n] - scum[t * LD + n]);
+      sr[t * LD + n] = rnd<kBf16>(sr[t * LD + n] * expf(scume[t * LD + n]));
+      sk[t * LD + n] =
+          rnd<kBf16>(sk[t * LD + n] * expf(scum[(R - 1) * LD + n] - scum[t * LD + n]));
     }
     for (int n = tid; n < N; n += kThreads) setot[n] = expf(scum[(R - 1) * LD + n]);
     __syncthreads();
@@ -253,7 +286,7 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
       float inter = 0.0f;
       for (int n = 0; n < N; ++n) inter += sr[t * LD + n] * ss[n * kNV + m];
       float intra = 0.0f;
-      for (int s = 0; s < t; ++s) intra += satt[t * (C + 1) + s] * sv[s * kNV + m];
+      for (int s = 0; s < t; ++s) intra += satt[t * (C + 1) + s] * rnd<kBf16>(sv[s * kNV + m]);
       y[cb + (long long)t * step + m0 + m] = inter + intra + sdiag[t] * sv[t * kNV + m];
     }
     __syncthreads();
@@ -263,7 +296,7 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
       const int n = i / kNV;
       const int m = i % kNV;
       float acc = 0.0f;
-      for (int t = 0; t < R; ++t) acc += sk[t * LD + n] * sv[t * kNV + m];
+      for (int t = 0; t < R; ++t) acc += sk[t * LD + n] * rnd<kBf16>(sv[t * kNV + m]);
       ss[i] = setot[n] * ss[i] + acc;
     }
     __syncthreads();
@@ -405,16 +438,16 @@ struct IntraSmem {
   static constexpr int kKK = kk_row0(kS);    // rows of kk over all i
   static constexpr int kLDA = C + 4;         // att row stride
   // r (then q), k (then k_fut), cum, cume (rows of NP + 4); v (rows of
-  // NP + 8); kk; att; u: 53 KB at C = 32, N = 64, so that 4 blocks fit an
-  // SM.  Row strides of 4 or 8 mod 32 floats keep most fragment loads free
-  // of bank conflicts.
-  static size_t floats(int NP) {
+  // NP + 8); kk; att; u; in the bf16 mode diag: 53 KB at C = 32, N = 64,
+  // so that 4 blocks fit an SM.  Row strides of 4 or 8 mod 32 floats keep
+  // most fragment loads free of bank conflicts.
+  static size_t floats(int NP, bool bf16) {
     return (size_t)4 * C * (NP + 4) + (size_t)C * (NP + 8) +
-           (size_t)kKK * (NP + 4) + (size_t)C * kLDA + NP;
+           (size_t)kKK * (NP + 4) + (size_t)C * kLDA + NP + (bf16 ? C : 0);
   }
 };
 
-template <int C>
+template <int C, bool kBf16>
 __global__ void __launch_bounds__(kIntraThreads, C == 64 ? 1 : 4)
 wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ w,
@@ -438,6 +471,7 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
   float* sKK = sV + C * LD8;         // (kKK, LD4): k e^{ref - cum}
   float* sAtt = sKK + Smem::kKK * LD4;   // (C, LDA)
   float* sU = sAtt + C * LDA;        // (NP)
+  float* sDiag = sU + NP;            // (C), the bf16 mode's bonus diag
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -512,16 +546,22 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
   __syncthreads();
 
-  // 3a. the diagonal sub-blocks of att, exactly: first the 120 entries
-  //     below the diagonal of each sub-chunk (rows p + 1 and 15 - p
-  //     paired, 16 entries a pair, row 8 alone), then the bonus diag[t] on
-  //     the diagonal, which takes no exponential
-  for (int e = tid; e < S * 120 + C; e += kIntraThreads) {
-    const int si = e < S * 120 ? e / 120 : (e - S * 120) / kSub;
-    const int p = (e % 120) / 16;
-    const int j = (e % 120) % 16;
-    const int t = e < S * 120 ? si * kSub + (j <= p ? p + 1 : kSub - 1 - p) : e - S * 120;
-    const int s = e < S * 120 ? si * kSub + (j <= p ? j : j - p - 1) : t;
+  // 3a. the diagonal sub-blocks of att, exactly (in the bf16 mode the whole
+  //     chunk, one block of XS = C tokens): first the XS (XS - 1) / 2
+  //     entries below the diagonal of each block (rows p + 1 and XS - 1 - p
+  //     paired, XS entries a pair, row XS / 2 alone), then the bonus
+  //     diag[t], which takes no exponential, on the diagonal (in the bf16
+  //     mode into sDiag)
+  constexpr int XS = kBf16 ? C : kSub;
+  constexpr int NX = C / XS;
+  constexpr int PAIRS = XS * (XS - 1) / 2;
+  for (int e = tid; e < NX * PAIRS + C; e += kIntraThreads) {
+    const bool below = e < NX * PAIRS;
+    const int si = e / PAIRS;
+    const int p = (e % PAIRS) / XS;
+    const int j = (e % PAIRS) % XS;
+    const int t = below ? si * XS + (j <= p ? p + 1 : XS - 1 - p) : e - NX * PAIRS;
+    const int s = below ? si * XS + (j <= p ? j : j - p - 1) : t;
     const float4* rt = reinterpret_cast<const float4*>(sR + t * LD4);
     const float4* ks = reinterpret_cast<const float4*>(sK + s * LD4);
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // four short chains
@@ -539,13 +579,17 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
       const float4* cs = reinterpret_cast<const float4*>(sCum + s * LD4);
       for (int n4 = 0; n4 < NP / 4; ++n4) {
         const float4 a = rt[n4], bk = ks[n4], et = ce[n4], es = cs[n4];
-        acc.x += a.x * expf(fminf(et.x - es.x, 0.0f)) * bk.x;
-        acc.y += a.y * expf(fminf(et.y - es.y, 0.0f)) * bk.y;
-        acc.z += a.z * expf(fminf(et.z - es.z, 0.0f)) * bk.z;
-        acc.w += a.w * expf(fminf(et.w - es.w, 0.0f)) * bk.w;
+        acc.x += rnd<kBf16>(a.x) * rnd<kBf16>(expf(fminf(et.x - es.x, 0.0f))) * rnd<kBf16>(bk.x);
+        acc.y += rnd<kBf16>(a.y) * rnd<kBf16>(expf(fminf(et.y - es.y, 0.0f))) * rnd<kBf16>(bk.y);
+        acc.z += rnd<kBf16>(a.z) * rnd<kBf16>(expf(fminf(et.z - es.z, 0.0f))) * rnd<kBf16>(bk.z);
+        acc.w += rnd<kBf16>(a.w) * rnd<kBf16>(expf(fminf(et.w - es.w, 0.0f))) * rnd<kBf16>(bk.w);
       }
     }
-    sAtt[t * LDA + s] = (acc.x + acc.y) + (acc.z + acc.w);
+    const float sum = (acc.x + acc.y) + (acc.z + acc.w);
+    if (kBf16 && s == t)
+      sDiag[t] = sum;
+    else
+      sAtt[t * LDA + s] = s == t ? sum : rnd<kBf16>(sum);
   }
   __syncthreads();   // r and k are read above and overwritten below
 
@@ -562,24 +606,27 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
     const float kv = sK[t * LD4 + n];
     const float ce = sCume[t * LD4 + n];
     const float cu = sCum[t * LD4 + n];
-    const float rdv = rv * expf(ce);
+    const float rdv = rnd<kBf16>(rv * expf(ce));
     rd[i] = rdv;
-    const int si = t / kSub;
-    for (int j = si + 1; j < S; ++j)
-      sKK[(kk_row0(j) + t) * LD4 + n] = kv * expf(fminf(sCume[j * kSub * LD4 + n] - cu, 0.0f));
-    sR[t * LD4 + n] =
-        si == 0 ? rdv : rv * expf(fminf(ce - sCume[si * kSub * LD4 + n], 0.0f));
-    sK[t * LD4 + n] = kv * expf(sCum[(C - 1) * LD4 + n] - cu);
+    if constexpr (!kBf16) {
+      const int si = t / kSub;
+      for (int j = si + 1; j < S; ++j)
+        sKK[(kk_row0(j) + t) * LD4 + n] = kv * expf(fminf(sCume[j * kSub * LD4 + n] - cu, 0.0f));
+      sR[t * LD4 + n] =
+          si == 0 ? rdv : rv * expf(fminf(ce - sCume[si * kSub * LD4 + n], 0.0f));
+    }
+    sK[t * LD4 + n] = rnd<kBf16>(kv * expf(sCum[(C - 1) * LD4 + n] - cu));
   }
   for (int n = tid; n < NP; n += kIntraThreads)
     dec[tile * NP + n] = expf(sCum[(C - 1) * LD4 + n]);
   __syncthreads();
 
   // 4. tensor cores: the off-diagonal sub-blocks of att, q . kk^T, one warp
-  //    per later sub-chunk i (its 2 i tiles of 16 x 8 at once); and dS =
-  //    k_fut^T . v (NP x NP, to scratch), one warp per (16 rows, half the
-  //    columns).  A warp splits each A fragment once for all its tiles.
-  if constexpr (S > 1) {
+  //    per later sub-chunk i (its 2 i tiles of 16 x 8 at once; none in the
+  //    bf16 mode, where 3a took the whole triangle); and dS = k_fut^T . v
+  //    (NP x NP, to scratch), one warp per (16 rows, half the columns).  A
+  //    warp splits each A fragment once for all its tiles.
+  if constexpr (S > 1 && !kBf16) {
     if (wid < S - 1) {
       const int i = wid + 1;
       const float* A = sR + i * kSub * LD4;                  // q: (16, NP)
@@ -627,7 +674,7 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
         for (int j = 0; j < 4; ++j) {
           if (j < half) {
             const float* Bm = sV + kk * LD8 + (nt0 + j) * 8;
-            const float bb[2] = {Bm[q * LD8 + g], Bm[(q + 4) * LD8 + g]};
+            const float bb[2] = {rnd<kBf16>(Bm[q * LD8 + g]), rnd<kBf16>(Bm[(q + 4) * LD8 + g])};
             mma3(d[j], as, Split<2>(bb));
           }
         }
@@ -654,7 +701,7 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < C; kk += 8) {
       const float* Bm = sV + kk * LD8 + nt * 8;
-      const float bb[2] = {Bm[q * LD8 + g], Bm[(q + 4) * LD8 + g]};
+      const float bb[2] = {rnd<kBf16>(Bm[q * LD8 + g]), rnd<kBf16>(Bm[(q + 4) * LD8 + g])};
       const Split<2> bs(bb);
 #pragma unroll
       for (int mt = kk / 16; mt < MT; ++mt) {   // att is 0 above the sub-blocks
@@ -667,6 +714,12 @@ wkv6_intra_kernel(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       const int t = mt * 16 + g;
+      if constexpr (kBf16) {   // the bonus, in float32 v
+        d[mt][0] += sDiag[t] * sV[t * LD8 + m];
+        d[mt][1] += sDiag[t] * sV[t * LD8 + m + 1];
+        d[mt][2] += sDiag[t + 8] * sV[(t + 8) * LD8 + m];
+        d[mt][3] += sDiag[t + 8] * sV[(t + 8) * LD8 + m + 1];
+      }
       float* yo = y + gb + t * step + m;
       if (vec && m < N) {   // N % 4 == 0: m + 1 < N too, 8-byte aligned
         if (t < R) *reinterpret_cast<float2*>(yo) = make_float2(d[mt][0], d[mt][1]);
@@ -898,21 +951,42 @@ int vec_ok(int N, uintptr_t bits) { return (N % 4 == 0 && (bits & 15) == 0) ? 1 
 
 uintptr_t addr(const void* p) { return reinterpret_cast<uintptr_t>(p); }
 
-template <int C>
-int launch_intra(const float* r, const float* k, const float* v, const float* w,
-                 const float* u, float* y, float* scratch, int B, int L, int H, int N,
-                 cudaStream_t stream) {
+template <int C, bool kBf16>
+int launch_intra_mode(const float* r, const float* k, const float* v, const float* w,
+                      const float* u, float* y, float* scratch, int B, int L, int H,
+                      int N, cudaStream_t stream) {
   const int NP = pad16(N);
   const int nc = (L + C - 1) / C;
   const long long tiles = (long long)B * H * nc;
   const Scratch sc = split_scratch<C>(scratch, tiles, NP);
-  const size_t smem = IntraSmem<C>::floats(NP) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(wkv6_intra_kernel<C>,
+  const size_t smem = IntraSmem<C>::floats(NP, kBf16) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(wkv6_intra_kernel<C, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  wkv6_intra_kernel<C><<<(unsigned)tiles, kIntraThreads, smem, stream>>>(
-      r, k, v, w, u, y, sc.rdec, sc.dS, sc.dec, L, H, N, NP, nc, 
+  wkv6_intra_kernel<C, kBf16><<<(unsigned)tiles, kIntraThreads, smem, stream>>>(
+      r, k, v, w, u, y, sc.rdec, sc.dS, sc.dec, L, H, N, NP, nc,
       vec_ok(N, addr(r) | addr(k) | addr(v) | addr(w) | addr(y)));
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int launch_intra(const float* r, const float* k, const float* v, const float* w,
+                 const float* u, float* y, float* scratch, int B, int L, int H, int N,
+                 int bf16, cudaStream_t stream) {
+  return bf16 ? launch_intra_mode<C, true>(r, k, v, w, u, y, scratch, B, L, H, N, stream)
+              : launch_intra_mode<C, false>(r, k, v, w, u, y, scratch, B, L, H, N, stream);
+}
+
+template <bool kBf16>
+int launch_serial(const float* r, const float* k, const float* v, const float* w,
+                  const float* u, const float* s0, float* y, float* sout, int B, int L,
+                  int H, int N, int C, cudaStream_t stream) {
+  const size_t smem = smem_floats(N, C) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv6_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(B * H, (N + kNV - 1) / kNV);
+  wkv6_kernel<kBf16><<<grid, kThreads, smem, stream>>>(r, k, v, w, u, s0, y, sout, L, H, N, C);
   return (int)cudaGetLastError();
 }
 
@@ -936,26 +1010,23 @@ int launch_scan(const float* s0, float* y, float* sout, float* scratch, int B, i
 
 extern "C" {
 
-// All pointers to contiguous float32 device memory.  Returns a cudaError_t.
+// The serial route.  All pointers to contiguous float32 device memory;
+// bf16 != 0 selects the bf16 mode.  Returns a cudaError_t.
 int wkv6_launch(const void* r, const void* k, const void* v, const void* w,
                 const void* u, const void* s0, void* y, void* s_final, int B,
-                int L, int H, int N, int chunk, void* stream) {
+                int L, int H, int N, int chunk, int bf16, void* stream) {
   if (B < 1 || L < 1 || H < 1 || N < 1 || N > kMaxN ||
       (chunk != 16 && chunk != 32 && chunk != 64) ||
       (long long)B * H > 2147483647LL) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = smem_floats(N, chunk) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      wkv6_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * H, (N + kNV - 1) / kNV);
-  wkv6_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(r), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(w),
-      static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<float*>(y), static_cast<float*>(s_final), L, H, N, chunk);
-  return (int)cudaGetLastError();
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_serial<true>(f(r), f(k), f(v), f(w), f(u), f(s0), m(y), m(s_final),
+                                    B, L, H, N, chunk, st)
+              : launch_serial<false>(f(r), f(k), f(v), f(w), f(u), f(s0), m(y), m(s_final),
+                                     B, L, H, N, chunk, st);
 }
 
 
@@ -982,21 +1053,25 @@ bool chunked_shape_ok(int B, int L, int H, int N, int chunk) {
 // stream, with one scratch of wkv6_scratch_floats floats.  All pointers to
 // contiguous float32 device memory.  Each returns a cudaError_t.
 
-// Phase 1: y_intra into y; r_dec, dS and exp(total) into scratch.
+// Phase 1: y_intra into y; r_dec, dS and exp(total) into scratch; bf16 != 0
+// selects the bf16 mode (phase 2 is the same in both).
 int wkv6_intra_launch(const void* r, const void* k, const void* v, const void* w,
                       const void* u, void* y, void* scratch, int B, int L, int H,
-                      int N, int chunk, void* stream) {
+                      int N, int chunk, int bf16, void* stream) {
   if (!chunked_shape_ok(B, L, H, N, chunk)) return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto m = [](void* p) { return static_cast<float*>(p); };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (chunk) {
     case 16:
-      return launch_intra<16>(f(r), f(k), f(v), f(w), f(u), m(y), m(scratch), B, L, H, N, st);
+      return launch_intra<16>(f(r), f(k), f(v), f(w), f(u), m(y), m(scratch), B, L, H, N,
+                              bf16, st);
     case 32:
-      return launch_intra<32>(f(r), f(k), f(v), f(w), f(u), m(y), m(scratch), B, L, H, N, st);
+      return launch_intra<32>(f(r), f(k), f(v), f(w), f(u), m(y), m(scratch), B, L, H, N,
+                              bf16, st);
     default:
-      return launch_intra<64>(f(r), f(k), f(v), f(w), f(u), m(y), m(scratch), B, L, H, N, st);
+      return launch_intra<64>(f(r), f(k), f(v), f(w), f(u), m(y), m(scratch), B, L, H, N,
+                              bf16, st);
   }
 }
 

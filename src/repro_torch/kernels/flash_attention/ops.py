@@ -2,7 +2,8 @@
 
 A CUDA tensor launches the hand-written kernel (:mod:`.kernel`); a CPU
 tensor takes the plain version (:mod:`.ref`), which autograd differentiates
-directly.  Nothing falls back: a kernel that fails to build or launch
+directly, and so does a ``meta`` tensor, on which the plain version only
+propagates shapes (the dry-run).  Nothing falls back: a kernel that fails to build or launch
 raises.  The sequence is not padded: the kernel masks keys past S itself.
 
 On the card, inputs that need a gradient go through
@@ -60,7 +61,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         or v.requires_grad):
             return FlashAttentionFn.apply(q, k, v, causal, window)
         return kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return attention_ref(q, k, v, causal=causal, window=window)
-    raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not "
+    raise ValueError(f"flash_attention runs on CUDA, CPU or meta tensors, not "
                      f"{q.device.type}")

@@ -18,7 +18,11 @@ the chunks in order.
 :func:`wkv6_cuda` launches the route :func:`route` names and adds one to
 ``launches["wkv6"]`` and one to ``launches["wkv6_chunked"]`` or
 ``launches["wkv6_serial"]`` per call, whatever number of kernels the route
-launches.  :func:`launch_chunked` and :func:`launch_serial` run one route on
+launches; a call in the bf16 mode (``compute_dtype=torch.bfloat16``, the
+reference's "rwkv_bf16" form) counts apart, in ``launches["wkv6_bf16"]``
+and ``["wkv6_bf16_chunked"]`` or ``["wkv6_bf16_serial"]``.  The bf16 mode
+is a flag of the same kernels: they round their operands to bf16 at the
+reference's points and sum in float32.  :func:`launch_chunked` and :func:`launch_serial` run one route on
 any shape and count nothing, so that a check can hold each route against the
 plain version; :func:`launch_intra` and :func:`launch_scan` run one phase of
 the chunked route each, so that a check can time them apart.  Each checks
@@ -37,6 +41,7 @@ from pathlib import Path
 import torch
 
 from ..build import build, build_dir, require_card
+from .ref import is_bf16
 
 __all__ = ["CHUNKS", "MAX_HEAD_DIM", "NVCC_FLAGS", "ROUTES", "SOURCES",
            "build_dir", "check_inputs", "launch_chunked", "launch_intra",
@@ -55,7 +60,9 @@ ROUTES = ("chunked", "serial")
 
 #: op calls, counted where their kernels are launched: every call, and the
 #: calls of each route
-launches: dict[str, int] = {"wkv6": 0, "wkv6_chunked": 0, "wkv6_serial": 0}
+launches: dict[str, int] = {"wkv6": 0, "wkv6_chunked": 0, "wkv6_serial": 0,
+                            "wkv6_bf16": 0, "wkv6_bf16_chunked": 0,
+                            "wkv6_bf16_serial": 0}
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -80,9 +87,9 @@ def library() -> ctypes.CDLL:
             require_card()
             lib = ctypes.CDLL(str(build("wkv6", SOURCES, NVCC_FLAGS)))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.wkv6_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.wkv6_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.wkv6_launch.restype = ctypes.c_int
-            lib.wkv6_intra_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+            lib.wkv6_intra_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
             lib.wkv6_intra_launch.restype = ctypes.c_int
             lib.wkv6_scan_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.wkv6_scan_launch.restype = ctypes.c_int
@@ -93,36 +100,42 @@ def library() -> ctypes.CDLL:
 
 
 def wkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-              u: torch.Tensor, s0: torch.Tensor, *,
-              chunk: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+              u: torch.Tensor, s0: torch.Tensor, *, chunk: int = 32,
+              compute_dtype: torch.dtype = torch.float32,
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, w (B, L, H, N), u (H, N), s0 (B, H, N, N), float32 ->
     (y (B, L, H, N), s_final (B, H, N, N)), float32, by the route
-    :func:`route` names."""
+    :func:`route` names, in the mode ``compute_dtype`` names."""
     check_inputs(r, k, v, w, u, s0, chunk)
+    bf16 = is_bf16(compute_dtype)
     rt = route(r.shape[1], chunk)
-    out = (_chunked if rt == "chunked" else _serial)(r, k, v, w, u, s0, chunk)
-    launches["wkv6"] += 1
-    launches[f"wkv6_{rt}"] += 1
+    out = (_chunked if rt == "chunked" else _serial)(r, k, v, w, u, s0, chunk, bf16)
+    name = "wkv6_bf16" if bf16 else "wkv6"
+    launches[name] += 1
+    launches[f"{name}_{rt}"] += 1
     return out
 
 
-def launch_serial(r, k, v, w, u, s0, *, chunk: int = 32):
+def launch_serial(r, k, v, w, u, s0, *, chunk: int = 32,
+                  compute_dtype: torch.dtype = torch.float32):
     """The serial route on any shape, as :func:`wkv6_cuda`; counts nothing."""
     check_inputs(r, k, v, w, u, s0, chunk)
-    return _serial(r, k, v, w, u, s0, chunk)
+    return _serial(r, k, v, w, u, s0, chunk, is_bf16(compute_dtype))
 
 
-def launch_chunked(r, k, v, w, u, s0, *, chunk: int = 32):
+def launch_chunked(r, k, v, w, u, s0, *, chunk: int = 32,
+                   compute_dtype: torch.dtype = torch.float32):
     """The chunked route on any shape, as :func:`wkv6_cuda`; counts nothing."""
     check_inputs(r, k, v, w, u, s0, chunk)
-    return _chunked(r, k, v, w, u, s0, chunk)
+    return _chunked(r, k, v, w, u, s0, chunk, is_bf16(compute_dtype))
 
 
-def launch_intra(r, k, v, w, u, s0, *, chunk: int = 32):
+def launch_intra(r, k, v, w, u, s0, *, chunk: int = 32,
+                 compute_dtype: torch.dtype = torch.float32):
     """Phase 1 of the chunked route alone: (y holding y_intra, the scratch
     holding r_dec, dS and exp(total)); counts nothing."""
     check_inputs(r, k, v, w, u, s0, chunk)
-    return _intra(r, k, v, w, u, chunk)
+    return _intra(r, k, v, w, u, chunk, is_bf16(compute_dtype))
 
 
 def launch_scan(s0: torch.Tensor, y: torch.Tensor, scratch: torch.Tensor, *,
@@ -143,30 +156,31 @@ def launch_scan(s0: torch.Tensor, y: torch.Tensor, scratch: torch.Tensor, *,
     return _scan(s0, y, scratch, chunk)
 
 
-def _serial(r, k, v, w, u, s0, chunk: int):
+def _serial(r, k, v, w, u, s0, chunk: int, bf16: bool):
     B, L, H, N = r.shape
     y = torch.empty_like(r)
     s_final = torch.empty_like(s0)
     _check(library().wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         s0.data_ptr(), y.data_ptr(), s_final.data_ptr(), B, L, H, N, chunk,
-        _stream(r)), "serial")
+        int(bf16), _stream(r)), "serial")
     return y, s_final
 
 
-def _chunked(r, k, v, w, u, s0, chunk: int):
-    y, scratch = _intra(r, k, v, w, u, chunk)
+def _chunked(r, k, v, w, u, s0, chunk: int, bf16: bool):
+    y, scratch = _intra(r, k, v, w, u, chunk, bf16)
     return y, _scan(s0, y, scratch, chunk)
 
 
-def _intra(r, k, v, w, u, chunk: int):
+def _intra(r, k, v, w, u, chunk: int, bf16: bool):
     B, L, H, N = r.shape
     y = torch.empty_like(r)
     scratch = torch.empty(scratch_floats(B, L, H, N, chunk), dtype=torch.float32,
                           device=r.device)
     _check(library().wkv6_intra_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        y.data_ptr(), scratch.data_ptr(), B, L, H, N, chunk, _stream(r)), "intra")
+        y.data_ptr(), scratch.data_ptr(), B, L, H, N, chunk, int(bf16),
+        _stream(r)), "intra")
     return y, scratch
 
 

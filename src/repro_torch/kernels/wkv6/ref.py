@@ -12,6 +12,15 @@ reference point each, products in 3xTF32), so that the CPU tests can hold
 that decomposition against the two above.  Nothing on the main path calls
 it; ``python -m repro_torch.kernels.wkv6.precision`` prints its error with
 plain TF32 and with 3xTF32 products.
+
+``compute_dtype=torch.bfloat16`` is the reference's "rwkv_bf16" form
+(``wkv_chunked(..., compute_dtype=bfloat16)``): the O(C²) intra-chunk
+operands are rounded to bf16 at the reference's points (r, k, v, r_dec, the
+pairwise decays W, att before its product with v, k_fut) and every product
+is accumulated in float32; the log-decay, the bonus term and the carried
+state stay float32.  A product of two or three bf16 values is exact in
+float32, so only the order of the float32 sums differs between the
+reference, these plain versions and the kernel's bf16 mode.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["CHUNK", "SUB", "wkv_chunked_ref", "wkv_recurrent_ref",
+__all__ = ["CHUNK", "SUB", "is_bf16", "wkv_chunked_ref", "wkv_recurrent_ref",
            "wkv_two_phase_ref"]
 
 CHUNK = 32
@@ -39,9 +48,24 @@ def wkv_recurrent_ref(r, k, v, w, u, s0):
     return torch.stack(ys, 1), s
 
 
-def wkv_chunked_ref(r, k, v, w, u, s0, chunk: int = CHUNK):
-    """Chunked parallel form in float32; same signature and semantics as
-    the oracle.  A ragged L is padded to a chunk multiple with r = k = v = 0
+def is_bf16(compute_dtype: torch.dtype) -> bool:
+    """True for the bf16 form, False for float32; raises for anything else."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype}, expected float32 or bfloat16")
+    return compute_dtype == torch.bfloat16
+
+
+def _rounder(compute_dtype: torch.dtype):
+    """x -> x rounded to bf16 and back (the bf16 form), or x itself."""
+    if is_bf16(compute_dtype):
+        return lambda x: x.to(torch.bfloat16).float()
+    return lambda x: x
+
+
+def wkv_chunked_ref(r, k, v, w, u, s0, chunk: int = CHUNK,
+                    compute_dtype: torch.dtype = torch.float32):
+    """Chunked parallel form in float32 (or the bf16 form, see the module
+    docstring); same signature and semantics as the oracle.  A ragged L is padded to a chunk multiple with r = k = v = 0
     and w = 1 (log-decay 0), which leaves y and the final state unchanged.
 
     Within a chunk the pairwise decay is taken in log space,
@@ -49,6 +73,7 @@ def wkv_chunked_ref(r, k, v, w, u, s0, chunk: int = CHUNK):
     two exps (which overflows for near-zero decays); the state advances by
     ``exp(total - cum)``, also <= 1.
     """
+    rnd = _rounder(compute_dtype)
     B, L, H, N = r.shape
     r, k, v, w = (a.float() for a in (r, k, v, w))
     pad = (-L) % chunk
@@ -62,21 +87,22 @@ def wkv_chunked_ref(r, k, v, w, u, s0, chunk: int = CHUNK):
     s = s0.float()
     ys = []
     for c in range(nc):
-        rt, kt, vt, wt = rc[:, c], kc[:, c], vc[:, c], wc[:, c]   # (B,C,H,N)
+        r32, k32, v32, wt = rc[:, c], kc[:, c], vc[:, c], wc[:, c]   # (B,C,H,N)
+        rt, kt, vt = rnd(r32), rnd(k32), rnd(v32)
         lw = torch.log(torch.clamp(wt, min=1e-30))
         cum = torch.cumsum(lw, 1)                                 # inclusive
         cume = cum - lw                                           # exclusive
-        r_dec = rt * torch.exp(cume)                              # r_t prod_{i<t} w_i
+        r_dec = rnd(r32 * torch.exp(cume))                        # r_t prod_{i<t} w_i
         y_inter = torch.einsum("bchn,bhnm->bchm", r_dec, s)
         diff = cume[:, :, None] - cum[:, None, :]                 # (B,C,C,H,N)
-        W = torch.where(tri[None, :, :, None, None],
-                        torch.exp(torch.clamp(diff, max=0.0)), 0.0)
+        W = rnd(torch.where(tri[None, :, :, None, None],
+                            torch.exp(torch.clamp(diff, max=0.0)), 0.0))
         att = torch.einsum("bchn,bcdhn,bdhn->bhcd", rt, W, kt)   # (B,H,C,C)
-        diag = torch.einsum("bchn,hn,bchn->bch", rt, u, kt)       # (B,C,H)
-        ys.append(y_inter + torch.einsum("bhcd,bdhm->bchm", att, vt)
-                  + diag[..., None] * vt)
+        diag = torch.einsum("bchn,hn,bchn->bch", r32, u, k32)     # (B,C,H)
+        ys.append(y_inter + torch.einsum("bhcd,bdhm->bchm", rnd(att), vt)
+                  + diag[..., None] * v32)
         total = cum[:, -1]                                        # (B,H,N)
-        k_fut = kt * torch.exp(total[:, None] - cum)              # total - cum <= 0
+        k_fut = rnd(k32 * torch.exp(total[:, None] - cum))        # total - cum <= 0
         s = torch.exp(total)[..., None] * s + torch.einsum("bchn,bchm->bhnm", k_fut, vt)
     return torch.cat(ys, 1)[:, :L], s
 
@@ -99,7 +125,8 @@ def _mm(a, b, passes: int):
     return (_tf32(a - ah) @ bh + ah @ _tf32(b - bh)) + ah @ bh
 
 
-def wkv_two_phase_ref(r, k, v, w, u, s0, chunk: int = CHUNK, passes: int = 3):
+def wkv_two_phase_ref(r, k, v, w, u, s0, chunk: int = CHUNK, passes: int = 3,
+                      compute_dtype: torch.dtype = torch.float32):
     """The chunked route of ``csrc/wkv6.cu`` in plain PyTorch; the signature
     and semantics of :func:`wkv_chunked_ref`, ``chunk`` a multiple of 16.
 
@@ -112,9 +139,17 @@ def wkv_two_phase_ref(r, k, v, w, u, s0, chunk: int = CHUNK, passes: int = 3):
     ``exp(total)``.  Phase 2, serial over chunks: ``y = y_intra + r_dec .
     S``, ``S <- exp(total) S + dS``.  Every product goes through
     :func:`_mm` with ``passes``.
+
+    With ``compute_dtype=torch.bfloat16`` (the kernels' bf16 mode) the
+    operands are rounded at :func:`wkv_chunked_ref`'s points, and the whole
+    strictly lower triangle of att takes the exact pairwise form, its decays
+    rounded to bf16 as the reference rounds W (the factored form has no W to
+    round); the bonus is added as ``diag v`` in float32 after ``att . v``.
+    Products of bf16 values are exact in one TF32 pass.
     """
     if chunk % SUB:
         raise ValueError(f"chunk {chunk} is not a multiple of {SUB}")
+    bf16 = is_bf16(compute_dtype)
     B, L, H, N = r.shape
     r, k, v, w = (a.float() for a in (r, k, v, w))
     pad = (-L) % chunk
@@ -130,6 +165,8 @@ def wkv_two_phase_ref(r, k, v, w, u, s0, chunk: int = CHUNK, passes: int = 3):
     cum = torch.cumsum(lw, 3)
     cume = cum - lw
     total = cum[..., -1, :]                                       # (B,H,nc,N)
+    if bf16:
+        return _two_phase_bf16(r, k, v, u, s0, cum, cume, total, L, passes)
 
     # phase 1
     r_dec = r * torch.exp(cume)
@@ -153,7 +190,13 @@ def wkv_two_phase_ref(r, k, v, w, u, s0, chunk: int = CHUNK, passes: int = 3):
             att[..., ti, :SUB * i] = _mm(q, kk.transpose(-1, -2), passes)
     y_intra = _mm(att, v, passes)                                 # (B,H,nc,C,N)
 
-    # phase 2
+    return _scan_phase(y_intra, r_dec, dS, total, s0, L, passes)
+
+
+def _scan_phase(y_intra, r_dec, dS, total, s0, L: int, passes: int):
+    """Phase 2, serial over chunks: ``y = y_intra + r_dec . S``, ``S <-
+    exp(total) S + dS``; returns (y (B, L, H, N), s_final)."""
+    B, H, nc, chunk, N = y_intra.shape
     s = s0.float()
     ys = []
     for c in range(nc):
@@ -161,4 +204,21 @@ def wkv_two_phase_ref(r, k, v, w, u, s0, chunk: int = CHUNK, passes: int = 3):
         s = torch.exp(total[:, :, c])[..., None] * s + dS[:, :, c]
     y = torch.stack(ys, 2).permute(0, 2, 3, 1, 4).reshape(B, nc * chunk, H, N)
     return y[:, :L], s
+
+
+def _two_phase_bf16(r, k, v, u, s0, cum, cume, total, L: int, passes: int):
+    """:func:`wkv_two_phase_ref`'s bf16 mode on (B, H, nc, C, N) tiles."""
+    rnd = _rounder(torch.bfloat16)
+    chunk = r.shape[3]
+    rb, kb, vb = rnd(r), rnd(k), rnd(v)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=r.device), -1)
+    diff = cume[..., :, None, :] - cum[..., None, :, :]          # (...,C,C,N)
+    W = rnd(torch.where(tri[:, :, None], torch.exp(torch.clamp(diff, max=0.0)), 0.0))
+    att = rnd(torch.einsum("bhctn,bhctsn,bhcsn->bhcts", rb, W, kb))
+    diag = torch.einsum("bhctn,hn,bhctn->bhct", r, u, k)
+    y_intra = _mm(att, vb, passes) + diag[..., None] * v
+    r_dec = rnd(r * torch.exp(cume))
+    k_fut = rnd(k * torch.exp(total[..., None, :] - cum))
+    dS = _mm(k_fut.transpose(-1, -2), vb, passes)
+    return _scan_phase(y_intra, r_dec, dS, total, s0, L, passes)
 

@@ -17,6 +17,7 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
+from ..distributed import constrain
 
 
 @dataclass(frozen=True)
@@ -57,7 +58,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     # perf-iteration levers (defaults = the reference baseline)
     moe_impl: str = "global"           # global | local (double-scatter) | shmap
-    attn_f32: bool = True              # kept for parity; attention is always f32
+    attn_f32: bool = True              # f32 scores/softmax on the plain path
     rwkv_bf16: bool = False            # bf16 intra-mixer math in rwkv6
     rwkv_chunk: int = 32               # wkv chunk length
 
@@ -276,6 +277,20 @@ def unflatten(flat: dict[str, Any]) -> dict[str, Any]:
     return tree
 
 
+def param_shapes_concrete(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` tensors of each leaf's shape and dtype
+    (the reference's ``ShapeDtypeStruct`` tree): no memory, no device."""
+    return unflatten({p: torch.empty(s.shape, device="meta",
+                                     dtype=torch.float32 if s.dtype == "float32"
+                                     else cfg.torch_dtype)
+                      for p, s in param_specs(cfg).items()})
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The parameter tree's logical axes, leaf for leaf."""
+    return unflatten({p: s.axes for p, s in param_specs(cfg).items()})
+
+
 def _init_leaf(gen: torch.Generator, spec: Spec, cfg: ModelConfig,
                device: torch.device) -> torch.Tensor:
     dt = torch.float32 if spec.dtype == "float32" else cfg.torch_dtype
@@ -364,6 +379,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token cross-entropy in float32; labels == ignore_id are masked."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
+    # vocab-sharded DTensor logits are gathered over the vocabulary first:
+    # DTensor's masked partial gather fails on this index shape
+    lf = constrain(lf, ("batch", "seq") + (None,) * (lf.dim() - 2))
     ll = torch.gather(lf, -1, labels.clamp(min=0)[..., None].long())[..., 0]
     mask = (labels != ignore_id).float()
     return torch.sum((lse - ll) * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -20,8 +20,10 @@ Three variants (``cfg.moe_impl``):
   the reference's meshless path, :func:`_bucketed_expert_math` over every
   expert; sharding the experts over devices waits for a device mesh.
 
-The reference pins activation shardings with ``constrain(...)``; on one
-device that is a no-op, so it is left out. The expert products are plain
+Activation shardings are pinned with ``constrain(...)`` at the reference's
+three sites of the global form (the dispatched buffer, the expert outputs,
+the combined output): a no-op on plain tensors, a redistribution of
+``DTensor``s in the dry-run. The expert products are plain
 batched matmuls and the scatters ``index_add_``/``scatter_add_``, as the
 reference computes them outside any Pallas kernel.
 """
@@ -32,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import constrain
 from .common import ModelConfig
 
 __all__ = ["MoE", "moe_forward", "moe_forward_global", "moe_forward_local",
@@ -103,13 +106,15 @@ def moe_forward_global(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     src = torch.where(keep[:, None], src, 0)
     buf = torch.zeros((E * capacity, D), dtype=xt.dtype, device=x.device)
     buf.index_add_(0, slot, src)
-    out_e = _swiglu_experts(buf.reshape(E, capacity, D), p.w_gate, p.w_up,
-                            p.w_down)
+    he = constrain(buf.reshape(E, capacity, D), ("experts", None, "act_embed"))
+    out_e = constrain(_swiglu_experts(he, p.w_gate, p.w_up, p.w_down),
+                      ("experts", None, "act_embed"))
 
     # combine: gather the slots back, weight by the gates, sum over k
     tok_out = out_e.reshape(E * capacity, D)[slot]             # (N*K, D)
     w = (gates.reshape(-1) * keep.to(gates.dtype))[:, None].to(tok_out.dtype)
-    return (tok_out * w).reshape(N, K, D).sum(1).reshape(B, S, D)
+    return constrain((tok_out * w).reshape(N, K, D).sum(1).reshape(B, S, D),
+                     ("batch", "seq", "act_embed"))
 
 
 def _double_scatter(x: torch.Tensor, gates: torch.Tensor, slot: torch.Tensor,

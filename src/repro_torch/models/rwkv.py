@@ -8,7 +8,9 @@ the channel mix (``relu(xk @ w_k)^2 @ w_v``) and the decode state.
 The wkv recurrence runs through :func:`repro_torch.kernels.wkv6.wkv6`, as the
 reference's op does on its own accelerator: a CUDA tensor launches the
 hand-written kernel, a CPU tensor takes the plain chunked version, in
-float32.  ``wkv_chunked`` and ``wkv_recurrent_ref`` are re-exported from the
+float32, or with ``cfg.rwkv_bf16`` in the reference's bf16 form (bf16
+intra-chunk operands, float32 sums, log-decay and state), also for a decode
+step, as the reference's decode runs the same function on one token.  ``wkv_chunked`` and ``wkv_recurrent_ref`` are re-exported from the
 kernel package under the reference's names.
 """
 
@@ -83,7 +85,8 @@ def rwkv_time_mix(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = Non
     u = p.u_bonus.float().reshape(H, N)
     s0 = (torch.zeros((B, H, N, N), dtype=torch.float32, device=x.device)
           if state is None else state["wkv"])
-    y, s_fin = wkv6(r.float(), k.float(), v.float(), w, u, s0, chunk=cfg.rwkv_chunk)
+    y, s_fin = wkv6(r.float(), k.float(), v.float(), w, u, s0, chunk=cfg.rwkv_chunk,
+                    compute_dtype=torch.bfloat16 if cfg.rwkv_bf16 else torch.float32)
     # per-head normalisation (GroupNorm(H) stand-in), then the gate
     y = y / torch.clamp(torch.sqrt(torch.mean(y * y, dim=-1, keepdim=True)), min=1e-6)
     y = y.reshape(B, L, D).to(x.dtype) * g

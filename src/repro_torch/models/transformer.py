@@ -15,8 +15,12 @@ reference layout: ``DecoderLM(cfg, init_params(cfg, seed=0))``, or
 :func:`repro_torch.models.convert.params_from_arrays` for the reference's
 own parameters.  Its parameters are frozen, as serving wants them;
 ``model.requires_grad_(True)`` makes them trainable, as
-:class:`repro_torch.runtime.trainer.Trainer` does.  The ``rwkv_bf16``
-variant is not ported yet and raises ``NotImplementedError``.
+:class:`repro_torch.runtime.trainer.Trainer` does.
+
+Activations are pinned with :func:`repro_torch.distributed.constrain` at
+the reference's sites (the embedding, each block's two residual sums, the
+logits): a no-op on plain tensors, a redistribution of ``DTensor``s under
+an active ``axis_rules`` context (the dry-run).
 """
 
 from __future__ import annotations
@@ -29,20 +33,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed import constrain
 from .attention import Attention, attn_decode, attn_forward
 from .common import ModelConfig, cross_entropy, rmsnorm
 from .mamba import Mamba, mamba_decode, mamba_forward, mamba_init_state
 from .moe import MoE, moe_forward
 from .rwkv import ChannelMix, TimeMix, rwkv_channel_mix, rwkv_init_state, rwkv_time_mix
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1, item 2)"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the variants this port lacks."""
-    if cfg.rwkv_bf16:
-        raise NotImplementedError(f"{cfg.name}: the rwkv_bf16 variant (bf16 "
-                                  f"intra-chunk math) {_NOT_PORTED}")
+ACT = ("batch", "seq", "act_embed")
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -104,7 +102,7 @@ class Block(nn.Module):
             y = mamba_forward(self.mamba, hn, cfg)
         else:
             y, _ = rwkv_time_mix(self.rwkv, hn, cfg)
-        return self._ffn(h + y)
+        return constrain(self._ffn(constrain(h + y, ACT)), ACT)
 
     def decode(self, h: torch.Tensor, c: dict, pos_idx: int) -> torch.Tensor:
         """One token; ``c`` is this layer's cache (views), updated in place."""
@@ -134,7 +132,6 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
-        check_supported(cfg)
         if not cfg.scan_layers:
             raise ValueError(f"{cfg.name}: expected the stacked (scan_layers) "
                              "parameter layout")
@@ -153,15 +150,20 @@ class DecoderLM(nn.Module):
 
     def embed_in(self, batch: dict) -> torch.Tensor:
         if self.cfg.frontend == "audio":
-            return batch["embeddings"].to(self.cfg.torch_dtype)   # stub: (B,S,D)
-        return self.embed[batch["tokens"].long()]
+            h = batch["embeddings"].to(self.cfg.torch_dtype)      # stub: (B,S,D)
+        else:
+            # F.embedding, not indexing: DTensor looks a vocab-sharded table
+            # up shard by shard (masked, then summed) instead of gathering it
+            h = F.embedding(batch["tokens"].long(), self.embed)
+        return constrain(h, ACT)
 
     def logits_out(self, h: torch.Tensor) -> torch.Tensor:
         h = rmsnorm(h, self.final_norm, self.cfg.norm_eps)
         if self.cfg.frontend == "audio":
-            return torch.einsum("bsd,cdv->bscv", h, self.heads_out)
+            return constrain(torch.einsum("bsd,cdv->bscv", h, self.heads_out),
+                             ("batch", "seq", None, "vocab"))
         w = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return h @ w
+        return constrain(h @ w, ("batch", "seq", "vocab"))
 
     def forward(self, batch: dict) -> torch.Tensor:
         """Logits of the whole sequence.  With ``cfg.remat`` and autograd
@@ -232,7 +234,6 @@ def init_cache(cfg: ModelConfig, batch_size: int, context: int,
     (G, B, d_conv - 1, Di), "ssm": (G, B, Di, d_state) float32}}``.  RWKV-6:
     ``{"pos{i}": {"att": {"shift": (G, B, D), "wkv": (G, B, H, N, N)
     float32}, "cmix": {"shift": (G, B, D)}}}``, shifts in the model dtype."""
-    check_supported(cfg)
     dev = resolve_device(device)
     G, dt = cfg.n_groups, cfg.torch_dtype
     kv_len = min(context, cfg.window) if cfg.window else context
@@ -250,6 +251,27 @@ def init_cache(cfg: ModelConfig, batch_size: int, context: int,
             st = rwkv_init_state(cfg, batch_size, dt, dev)
             cache[f"pos{i}"] = _stack(st, G)
     return cache
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """Logical axes matching :func:`init_cache` (for the dry-run's
+    shardings)."""
+    per_pos: dict[str, Any] = {}
+    for i in range(cfg.period):
+        mixer = cfg.layer_kind(i)["mixer"]
+        if mixer == "attn":
+            ax = ("layers", "cache_batch", "cache_heads", "kv_seq", None)
+            per_pos[f"pos{i}"] = {"k": ax, "v": ax}
+        elif mixer == "mamba":
+            per_pos[f"pos{i}"] = {"conv": ("layers", "cache_batch", None, "ffn"),
+                                  "ssm": ("layers", "cache_batch", "ffn", None)}
+        else:
+            per_pos[f"pos{i}"] = {
+                "att": {"shift": ("layers", "cache_batch", "act_embed"),
+                        "wkv": ("layers", "cache_batch", "cache_heads", None, None)},
+                "cmix": {"shift": ("layers", "cache_batch", "act_embed")},
+            }
+    return per_pos
 
 
 def _stack(tree: dict, G: int) -> dict:

@@ -10,8 +10,8 @@ otherwise.
 
 The state is ``{"m": [...], "v": [...], "step": int32 scalar}``, its lists
 aligned with the parameters; :func:`adamw_update` updates the parameters
-and the state in place.  The reference's ``opt_state_axes`` (logical axes
-for a sharded state) has no use on one card and is not ported.
+and the state in place.  :func:`opt_state_axes` gives the state's logical
+axes, for the dry-run's sharded state.
 """
 
 from __future__ import annotations
@@ -42,6 +42,11 @@ def adamw_init(params: list[torch.Tensor], cfg: OptConfig) -> dict:
     return {"m": [torch.zeros(p.shape, dtype=mdt, device=p.device) for p in params],
             "v": [torch.zeros(p.shape, dtype=mdt, device=p.device) for p in params],
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_state_axes(axes_tree):
+    """Logical axes for the optimizer state (mirrors the parameter axes)."""
+    return {"m": axes_tree, "v": axes_tree, "step": ()}
 
 
 def _schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -428,6 +429,88 @@ print("LOADED", bad)
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.distributed", "repro_torch.distributed.sharding",
+    "repro_torch.perfmodel.opcount", "repro_torch.perfmodel.roofline",
+    "repro_torch.perfmodel.breakdown", "repro_torch.perfmodel.stepmodel",
+    "repro_torch.launch.dryrun", "repro_torch.launch.specs", "repro_torch.launch.mesh"])
+def test_perfmodel_and_dryrun_modules_load_neither_jax_nor_repro(module):
+    """Importing them loads neither JAX nor the reference, and sets up no
+    process group."""
+    code = f"""
+import sys
+import torch.distributed as dist
+import {module}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad, "PG", dist.is_initialized())
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "LOADED [] PG False" in out.stdout, out.stdout
+
+
+def test_dryrun_loads_neither_jax_nor_repro(tmp_path):
+    """A dry-run cell and the step model on its record: no JAX, nothing of
+    the reference, and the fake process group gone at the end."""
+    code = f"""
+import json, sys
+import torch.distributed as dist
+from repro_torch.launch import dryrun
+from repro_torch.perfmodel.stepmodel import from_dryrun_record, predict
+rc = dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "decode_32k", "--out", {str(tmp_path)!r}])
+rec = json.load(open({str(tmp_path / "rwkv6-1.6b_decode_32k_single.json")!r}))
+assert rc == 0 and rec["status"] == "ok", rec.get("error")
+assert predict(from_dryrun_record(rec, n_steps=10, data_rate_steps_per_s=1e6)).step_time_s > 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad, "PG", dist.is_initialized())
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED [] PG False" in out.stdout, out.stdout
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+@pytest.mark.parametrize("B,L,H,N,scale,zero_s0", [
+    (1, 1, 1, 8, 2.0, False),      # one token (a decode step)
+    (2, 96, 2, 16, 2.0, False),    # several chunks, state carried
+    (1, 203, 2, 64, 3.5, True),    # ragged, near-zero decays, no s0
+    (2, 333, 2, 22, 2.0, False),   # head size not a multiple of 4
+])
+def test_wkv6_bf16_kernel_matches_plain(cuda, chunk, B, L, H, N, scale, zero_s0):
+    """The bf16 mode of both routes against the bf16 plain version on the
+    card: relative L2 2e-3 on y and on the final state (products of bf16
+    values are exact in float32; only the order of the sums differs).  The
+    call counts under wkv6_bf16, not wkv6."""
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import wkv6, wkv_chunked_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(L + N)
+    args = list(_wkv_inputs(gen, B, L, H, N, scale, cuda))
+    if zero_s0:
+        args[5] = torch.zeros_like(args[5])
+    bf = torch.bfloat16
+    rt = wk.route(L, chunk)
+    before = dict(wk.launches)
+    y, s = wkv6(*args, chunk=chunk, compute_dtype=bf)
+    other = wk.launch_serial if rt == "chunked" else wk.launch_chunked
+    y2, s2 = other(*args, chunk=chunk, compute_dtype=bf)
+    torch.cuda.synchronize()
+    assert wk.launches == {**before, "wkv6_bf16": before["wkv6_bf16"] + 1,
+                           f"wkv6_bf16_{rt}": before[f"wkv6_bf16_{rt}"] + 1}
+    yr, sr = wkv_chunked_ref(*args, chunk=chunk, compute_dtype=bf)
+    for got, want in ((y, yr), (s, sr), (y2, yr), (s2, sr)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        rel = torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)
+        assert float(rel) <= 2e-3
 
 
 def test_cpu_des_shared_trace_and_moe_load_neither_jax_nor_repro():

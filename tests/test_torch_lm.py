@@ -2,9 +2,8 @@
 
 The reference package's own parameters (``repro.models.common.init_params``)
 cross to the port through ``repro_torch.models.convert``; inputs are made
-with numpy from a seed and fed to both.  Both run on the CPU: the reference
-takes its XLA attention path there (mask -1e30) and the port its plain
-``attention_ref`` (mask -inf), two float32 softmaxes of the same scores.
+with numpy from a seed and fed to both.  Both run on the CPU, where both
+take the reference's XLA attention path (``_dense_attention``, mask -1e30).
 
 Bars: float32 logits at rtol/atol 1e-4; the bf16 case at relative L2 2e-2;
 the port's decode against its own forward at max abs 2e-2, as
@@ -37,7 +36,7 @@ from repro_torch.runtime.monitor import ProgressMonitor
 
 ATTN_ONLY = ["deepseek-7b", "yi-9b", "h2o-danube-3-4b", "starcoder2-15b",
              "qwen2-vl-72b", "musicgen-medium"]
-#: ported since the MoE/Mamba slice; only their rwkv_bf16 variant raises
+#: ported since the MoE/Mamba slice
 NOT_PORTED = ["qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "jamba-v0.1-52b"]
 RTOL = ATOL = 1e-4
 B = 2
@@ -94,12 +93,18 @@ def test_config_tables():
 
 
 def test_attn_bf16_variant_is_rejected():
-    """The port's attention computes in f32 only; a variant asking for bf16
-    scores raises instead of doing nothing."""
-    cfg = configs.get_config("yi-9b")
-    assert cfg.attn_f32 is True
-    with pytest.raises(ValueError, match="attn_bf16"):
-        configs.apply_variants(cfg, ["attn_bf16"])
+    """The variant was refused while the port's attention computed in f32
+    only; now ``apply_variants`` takes it, as the reference's does, and the
+    plain path's scores follow ``attn_f32``: the forward matches the
+    reference's with the same variant (bf16 scores, relative L2 2e-2)."""
+    cfg = configs.apply_variants(configs.get_config("yi-9b"), ["attn_bf16"])
+    assert cfg.attn_f32 is False
+    jcfg, jp, cfg, model = _pair("yi-9b", dtype="bfloat16", attn_f32=False)
+    jb, tb = _batch(cfg, 24)
+    want = np.asarray(JT.forward(jp, jcfg, jb).astype(jnp.float32))
+    with torch.inference_mode():
+        got = T.forward(model, cfg, tb).float().numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 2e-2
 
 
 def test_init_params_follows_the_specs():
@@ -275,16 +280,15 @@ def test_serve_refuses_audio():
 
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_unported_families_raise(arch):
-    """The MoE and Mamba families build now; what is still unported (the
-    rwkv_bf16 variant) raises, pointing at the ROADMAP."""
+    """The MoE and Mamba families build; since the bf16 variants slice
+    nothing raises any more, ``rwkv_bf16`` included (it changes only the
+    RWKV-6 mixer)."""
     cfg = configs.get_smoke_config(arch)
     T.DecoderLM(cfg, init_params(cfg, seed=0, device="cpu"))
     T.init_cache(cfg, 1, 8, device="cpu")
     cfg = dataclasses.replace(cfg, rwkv_bf16=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.DecoderLM(cfg, init_params(cfg, seed=0, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_cache(cfg, 1, 8, device="cpu")
+    T.DecoderLM(cfg, init_params(cfg, seed=0, device="cpu"))
+    T.init_cache(cfg, 1, 8, device="cpu")
 
 
 # ----------------------------------------------------------------- monitor ----

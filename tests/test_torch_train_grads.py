@@ -121,7 +121,8 @@ def test_wkv6_wrapper_backward_is_the_plain_gradient(monkeypatch, need):
     u, s0 = 0.1 * torch.randn((2, 8), generator=gen), torch.randn((2, 2, 8, 8), generator=gen)
     cy, cs = torch.randn((2, 45, 2, 8), generator=gen), torch.randn((2, 2, 8, 8), generator=gen)
     grads = []
-    for fn in (lambda *a: Wkv6Fn.apply(*a, 16), lambda *a: wkv_chunked_ref(*a, chunk=16)):
+    for fn in (lambda *a: Wkv6Fn.apply(*a, 16, torch.float32),
+               lambda *a: wkv_chunked_ref(*a, chunk=16)):
         ins = [x.clone().requires_grad_(n in need) for x, n in zip((r, k, v, w, u, s0), "rkvwus")]
         y, s = fn(*ins)
         ((y * cy).sum() + (s * cs).sum()).backward()
