@@ -69,7 +69,13 @@ trace_report (``trace_report`` for the fig7 and b10k_ramped packs on the
 card and on the CPU: one loop per level, the same counts twice; the device
 events of one warm sweep under torch.profiler), sweep_shim (the deprecated
 ``repro_torch.sweep.analyze`` warns and equals ``plan.sweep`` bit for
-bit), lm_prefill (yi-9b, bf16, B = 2, S = 4096; every flash call on the
+bit), shard_sweep (the b10k_ramped pack through ``pack.shard()``, one
+sub-batch per visible card, and ``pack.shard(1)``, each bit for bit the
+unsharded sweep: rows, share seconds and the three curve queries at
+T = 1024, every query kernel call held against its plain version and
+counted from 0; a shard count above the cards refused; the Fig. 7 pack at
+``shard(7)`` on the CPU bit for bit; ``plan.mc(shards=1)`` against
+``shards=None``), lm_prefill (yi-9b, bf16, B = 2, S = 4096; every flash call on the
 tensor-core kernel),
 lm_serve (``repro_torch.launch.serve``
 with yi-9b, 8 requests; prefill against decode beside the bf16 batch-split
@@ -104,8 +110,11 @@ wkv6_bf16); then the perf model: perfmodel_steps (train_100m, train_yi,
 train_rwkv and lm_prefill as measured above, each counted on a 1x1 mesh:
 roofline terms, the BottleMod step model's prediction, every step at or
 above its compute bound) and dryrun_cells (``python -m
-repro_torch.launch.dryrun`` in a child process for rwkv6-1.6b decode_32k
-and yi-9b train_4k on the 256-card fake mesh); then the
+repro_torch.launch.dryrun`` in a child process for rwkv6-1.6b decode_32k,
+yi-9b train_4k and qwen3-moe-235b-a22b decode_32k on the 256-card fake
+mesh), examples_torch (``examples/quickstart_torch.py`` and
+``examples/sweep_allocations_torch.py`` on the card, each in its own
+process, each exiting with 0); then the
 per-kernel line with launches on each path, errors and times at each
 path's shapes (also with the L2 flushed between launches, the "tile"
 route on the same inputs, and ptxas registers and spills; for the crossing
@@ -227,8 +236,14 @@ RWKV_BF16_TOL = 1e-1
 RWKV_BF16_DECODE = 8
 #: yi-9b cut to 2 layers for the attn_bf16 check
 ATTN_BF16_LAYERS = 2
-#: the dry-run cells run on the card's host, each in its own process
-DRYRUN_CELLS = (("rwkv6-1.6b", "decode_32k"), ("yi-9b", "train_4k"))
+#: the dry-run cells run on the card's host, each in its own process; the
+#: MoE cell counts its expert dispatch shard by shard
+DRYRUN_CELLS = (("rwkv6-1.6b", "decode_32k"), ("yi-9b", "train_4k"),
+                ("qwen3-moe-235b-a22b", "decode_32k"))
+#: the Fig. 7 pack's shard count on the CPU: not a divisor of B = 600
+CPU_SHARDS = 7
+#: the example twins run on the card, each in its own process
+EXAMPLES_TORCH = ("quickstart_torch.py", "sweep_allocations_torch.py")
 
 
 #: every phase's JSON line, by phase, for the phases that reuse what an
@@ -1804,7 +1819,7 @@ def worker_split(plan, scs) -> dict:
     cap = eng._proven_caps[(B, 1, ramps)]
     loops_s, out = host_s(lambda: eng._make_run(B, cap, ramps)(dev))
     check(out is not None, "the proven cap overflowed")
-    copy_back_s, _res = host_s(lambda: eng._wrap(out, B, pack.bat_idx))
+    copy_back_s, _res = host_s(lambda: eng._wrap([out], B, pack.bat_idx))
     slice_s, _sub = host_s(lambda: [serve._client_rows(rep, lo, lo + SVC_ROWS)
                                     for lo in range(0, rows, SVC_ROWS)])
     return {"B": B, "iter_cap": cap, "prepare_s": prepare_s,
@@ -2162,6 +2177,116 @@ def phase_sweep_shim(paper):
               f"finish {pn} differs")
     emit("sweep_shim", B=got.B, device=str(got.plan.device), warned=True,
          bitwise_vs_plan_sweep=True)
+
+
+# ------------------------------------------------------- sharded packs ----
+def same_sweep(got, want, what: str) -> None:
+    """Two Reports equal bit for bit: rows, finish times, share seconds."""
+    check(got.makespans.tobytes() == want.makespans.tobytes(), f"{what}: makespans")
+    check(got.share_seconds.tobytes() == want.share_seconds.tobytes(),
+          f"{what}: share seconds")
+    for pn in want.order:
+        check(got.finish[pn].tobytes() == want.finish[pn].tobytes(),
+              f"{what}: finish {pn}")
+
+
+def phase_shard_sweep(paper, scenarios, kernel):
+    """Sharded scenario packs (``ScenarioPack.shard``): the b10k_ramped set
+    through ``pack.shard()`` (every visible card) and ``pack.shard(1)``,
+    each bit for bit the unsharded sweep's rows, share seconds and curve
+    queries at T = 1024 (the queries of the sharded Reports recorded and
+    held against the plain versions, their launches counted from 0);
+    ``pack.shard(device_count() + 1)`` refused; the Fig. 7 pack at
+    ``shard(CPU_SHARDS)`` on the CPU bit for bit; ``plan.mc(shards=1)``
+    against ``shards=None`` on the card.  Returns (launches, max errors)."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    plan = paper.compile_paper_plan(0.5)
+    pack = plan.prepare(ramped_scenarios(paper, scenarios, B_LARGE))
+    plan.sweep(pack, backend="torch")
+    unsharded_s, want = host_s(lambda: plan.sweep(pack, backend="torch"))
+    ts = np.linspace(0.0, float(np.max(want.makespans)) * 1.05, T_QUERIES)
+    wanted = {(call, pn): query_fn(want, call, pn, ts)()
+              for pn in want.order for call in QUERY_OPS}
+    n_dev = torch.cuda.device_count()
+    walls = {}
+    with Recorder(kernel, KERNELS) as rec:
+        reset_launches()
+        for n in (None, 1):
+            sp = pack.shard(n)
+            check(sp.shards == (n_dev if n is None else n), f"shard({n}): {sp.shards}")
+            cold, got = host_s(lambda: plan.sweep(sp, backend="torch"))
+            warm, got = host_s(lambda: plan.sweep(sp, backend="torch"))
+            check_torch_report(got, f"shard_sweep shard({n})")
+            same_sweep(got, want, f"shard({n})")
+            q_s = 0.0
+            for (call, pn), out in wanted.items():
+                wall, res = host_s(query_fn(got, call, pn, ts))
+                q_s += wall
+                check(same_result(res, out), f"shard({n}) {call} {pn}: differs")
+            walls[f"shard({'' if n is None else n})"] = {
+                "shards": sp.shards, "cold_s": cold, "warm_s": warm, "queries_s": q_s}
+        torch.cuda.synchronize()
+        launches = read_launches()
+    errs = {name: 0.0 for name in KERNELS}
+    for name, args, out in rec.calls:
+        errs[name] = max(errs[name], hold_against_plain(name, args, out))
+    for name, rt in (("ppoly_eval", "vec"), ("ppoly_min_eval", "vec"),
+                     ("ppoly_first_crossing", "row")):
+        check(launches[name] == launches[f"{name}_{rt}"] == 2 * len(want.order),
+              f"shard_sweep: {launches[name]} {name} calls, "
+              f"{launches[f'{name}_{rt}']} on {rt}")
+    try:
+        pack.shard(n_dev + 1)
+    except ValueError as e:
+        check("device" in str(e), f"shard({n_dev + 1}): {e}")
+    else:
+        check(False, f"shard({n_dev + 1}) with {n_dev} card(s) was not refused")
+    cplan = paper.compile_paper_plan(0.5, device="cpu")
+    cpack = cplan.prepare(paper.sweep_scenarios(np.linspace(0.02, 0.98, 600)))
+    cpu_s, cwant = host_s(lambda: cplan.sweep(cpack, backend="torch"))
+    cpu_sharded_s, cgot = host_s(lambda: cplan.sweep(cpack.shard(CPU_SHARDS),
+                                                     backend="torch"))
+    same_sweep(cgot, cwant, f"cpu shard({CPU_SHARDS})")
+    for pn in cwant.order:
+        for call in QUERY_OPS:
+            check(same_result(query_fn(cgot, call, pn, ts[::16])(),
+                              query_fn(cwant, call, pn, ts[::16])()),
+                  f"cpu shard({CPU_SHARDS}) {call} {pn}: differs")
+    mc_none_s, m0 = host_s(lambda: plan.mc(paper.mc_spec(), n=MC_N, seed=0))
+    mc_one_s, m1 = host_s(lambda: plan.mc(paper.mc_spec(), n=MC_N, seed=0, shards=1))
+    check(m0.makespans.tobytes() == m1.makespans.tobytes(), "mc shards=1: makespans")
+    check(m0.quantiles() == m1.quantiles(), "mc shards=1: quantiles")
+    emit("shard_sweep", B=want.B, T=T_QUERIES, cards=n_dev, unsharded_warm_s=unsharded_s,
+         sharded=walls, launches={k: v for k, v in launches.items() if v},
+         max_abs_err=errs, refused=n_dev + 1,
+         cpu={"B": cwant.B, "shards": CPU_SHARDS, "unsharded_s": cpu_s,
+              "sharded_s": cpu_sharded_s},
+         mc={"n": MC_N, "shards_none_s": mc_none_s, "shards_1_s": mc_one_s},
+         iter_caps=plan._torch_engine.proven_caps_rows(), bitwise=True,
+         seconds=time.perf_counter() - t0)
+    return launches, errs
+
+
+def phase_examples_torch():
+    """The example twins on the card (their default device), each in its
+    own process, started together: each exits with 0; their first and last
+    lines and wall times."""
+    t0 = time.perf_counter()
+    runs = {}
+    results = run_children([[sys.executable, str(ROOT / "examples" / name)]
+                            for name in EXAMPLES_TORCH], timeout=300)
+    for name, (res, wall) in zip(EXAMPLES_TORCH, results):
+        check(res.returncode == 0, f"{name}: exit {res.returncode}\n"
+                                   f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+        lines = res.stdout.strip().splitlines()
+        runs[name] = {"wall_s": wall, "first": lines[0], "last": lines[-1]}
+    check("shard(s)" in runs["sweep_allocations_torch.py"]["first"]
+          and "cuda" in runs["sweep_allocations_torch.py"]["first"],
+          f"sweep_allocations_torch.py: {runs['sweep_allocations_torch.py']['first']}")
+    emit("examples_torch", runs=runs, seconds=time.perf_counter() - t0)
 
 
 # ------------------------------------------- MoE and Mamba families ----
@@ -3103,13 +3228,29 @@ def phase_perfmodel_steps():
          hbm_bw=roofline.HBM_BW, seconds=time.perf_counter() - t0)
 
 
+def run_children(cmds: list[list[str]], timeout: float) -> list[tuple]:
+    """Each command in its own child process, all started together (the
+    port on ``PYTHONPATH``); (result, wall seconds) of each, in order."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(cmd):
+        t1 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                             cwd=str(ROOT), env={**os.environ, "PYTHONPATH": str(SRC)})
+        return res, time.perf_counter() - t1
+
+    with ThreadPoolExecutor(len(cmds)) as ex:
+        return list(ex.map(one, cmds))
+
+
 def phase_dryrun_cells():
     """``python -m repro_torch.launch.dryrun`` in a child process for each
     of DRYRUN_CELLS on the 256-card fake mesh (the reference's integration
-    cell, rwkv6-1.6b decode, and yi-9b's training step): status ok, 256
-    chips, the decode memory-bound, the step model's prediction from each
-    record positive."""
-    import os
+    cell, rwkv6-1.6b decode, yi-9b's training step and qwen3-moe's decode),
+    the children started together: status ok, 256 chips, FLOPs counted,
+    the decodes memory-bound, the step model's prediction from each record
+    positive."""
     import shutil
 
     from repro_torch.perfmodel.stepmodel import from_dryrun_record, predict
@@ -3118,13 +3259,10 @@ def phase_dryrun_cells():
     out_dir = ROOT / "build" / "dryrun_cells"
     shutil.rmtree(out_dir, ignore_errors=True)
     cells = {}
-    for arch, shape in DRYRUN_CELLS:
-        t1 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                              "--shape", shape, "--mesh", "single", "--out", str(out_dir)],
-                             capture_output=True, text=True, timeout=900, cwd=str(ROOT),
-                             env={**os.environ, "PYTHONPATH": str(SRC)})
-        wall = time.perf_counter() - t1
+    runs = run_children([[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                          "--shape", shape, "--mesh", "single", "--out", str(out_dir)]
+                         for arch, shape in DRYRUN_CELLS], timeout=900)
+    for (arch, shape), (res, wall) in zip(DRYRUN_CELLS, runs):
         check(res.returncode == 0, f"dry-run {arch} {shape}: exit {res.returncode}\n"
                                    f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
         rec = json.loads((out_dir / f"{arch}_{shape}_single.json").read_text())
@@ -3132,6 +3270,7 @@ def phase_dryrun_cells():
         check(rec["status"] == "ok" and rec["chips"] == 256, f"{arch} {shape}: {rec}")
         check(shape != "decode_32k" or rr["dominant"] == "memory",
               f"{arch} {shape}: {rr['dominant']}-bound")
+        check(rec["per_device"]["flops"] > 0, f"{arch} {shape}: no FLOPs counted")
         p = predict(from_dryrun_record(rec, n_steps=10, data_rate_steps_per_s=1e6))
         check(p.step_time_s > 0, f"{arch} {shape}: step time {p.step_time_s}")
         cells[f"{arch}_{shape}"] = {
@@ -3139,7 +3278,7 @@ def phase_dryrun_cells():
             "memory_s": rr["memory_s"], "collective_s": rr["collective_s"],
             "useful_flops_ratio": rr["useful_flops_ratio"], "n_ops": rec["collectives"]["n_ops"],
             "count_s": rec["count_s"], "wall_s": wall, "predicted_step_s": p.step_time_s,
-            "memory": rec["memory"], "torch": rec["torch"]}
+            "memory": rec["memory"], "torch": rec["torch"], "status": rec["status"]}
     shutil.rmtree(out_dir, ignore_errors=True)
     emit("dryrun_cells", cells=cells, seconds=time.perf_counter() - t0)
 
@@ -3257,9 +3396,15 @@ def main() -> int:
         torch.cuda.synchronize()
         rest[name] = {k: n for k, n in read_launches().items() if n}
     emit("analysis_rest_launches", launches=rest)
+    # ---- sharded packs: counted from 0 inside the phase ----
+    shard_launches, shard_errs = phase_shard_sweep(paper, scenarios, kernel)
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in rows:
         row["launches_by_path"] = {"analysis": row["launches"], **{
-            name: counts.get(row["name"], 0) for name, counts in service.items()}}
+            name: counts.get(row["name"], 0) for name, counts in service.items()},
+            "shard_sweep": shard_launches[row["name"]]}
+        row["max_abs_err"] = max(row["max_abs_err"], shard_errs[row["name"]])
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3340,6 +3485,7 @@ def main() -> int:
     # ---- the perf model against the steps measured, then the dry-run ----
     phase_perfmodel_steps()
     phase_dryrun_cells()
+    phase_examples_torch()
     import torch.distributed
 
     check(not torch.distributed.is_initialized(),
@@ -3348,6 +3494,8 @@ def main() -> int:
                   "perfmodel_steps", "dryrun_cells")
     emit("timing", script_s=time.perf_counter() - t_start, train_phases_s=train_s,
          bf16_and_perfmodel_phases_s=sum(EMITTED[p]["seconds"] for p in new_phases),
+         shard_and_examples_phases_s=sum(EMITTED[p]["seconds"]
+                                         for p in ("shard_sweep", "examples_torch")),
          analysis_peak_memory_bytes=analysis_peak,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(smi, flush=True)

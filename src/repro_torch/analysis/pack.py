@@ -19,6 +19,12 @@ Re-sweep entry points::
     plan.sweep(pack)                        # level-fused torch engine
     plan.sweep(pack, backend="numpy")       # bit-identical to plan.sweep(list)
     pack2 = pack.override({"dl1.link": 2.0})    # delta re-pack of ONE input
+    plan.sweep(pack.shard(4))               # scenario axis in 4 sub-batches
+
+``shard(n)`` pads the batch to a multiple of ``n`` inside the engine;
+results are identical to the unsharded sweep for any B.  On a CUDA plan
+shard i runs on ``cuda:i``; on a CPU plan the host runs the sub-batches one
+after another.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from repro_torch.core.ppoly import PPoly
 from repro_torch.kernels.ppoly_eval.ref import PAD_START
 from repro_torch.sweep.batch import Scenario, ScenarioBatch
 from repro_torch.sweep.plin import BPL, UnsupportedScenario, is_batchable_resource
+from repro_torch.sweep.torch_engine import shard_devices
 
 __all__ = ["CapAxis", "PwAxis", "ScenarioPack", "ThetaMap"]
 
@@ -64,12 +71,13 @@ class ScenarioPack:
     #: (the offending input with its degree/shape) — surfaces in
     #: ``Report.fallback_reasons`` / ``MCReport.fallback_reasons()``
     loop_reasons: dict[int, str] = field(default_factory=dict, repr=False)
+    shards: int = 1
     #: static degree signature of the packed batch: True when any resource
     #: input ramps (non-zero slope) or any packed function carries a
     #: quadratic plane — selects the torch engine's widened quadratic arithmetic
     ramps: bool = False
-    #: per-(B, device) device-tensor memo used by the torch engine so
-    #: repeated re-sweeps of one pack skip even the host->device transfer
+    #: per-(B, shards, device) device-tensor memo used by the torch engine
+    #: so repeated re-sweeps of one pack skip even the host->device transfer
     _cache: dict[Any, Any] = field(default_factory=dict, repr=False,
                                    compare=False)
 
@@ -137,6 +145,7 @@ class ScenarioPack:
         feed(self.labels)
         feed(self.bat_idx)
         feed(self.loop_idx)
+        feed(self.shards)
         feed(self.ramps)
         feed(self.host_args())
         for sc in self.scenarios:
@@ -191,6 +200,33 @@ class ScenarioPack:
                             ramps=_compute_ramps(proc_args))
 
     # ------------------------------------------------------------------
+    def shard(self, n: int | None = None) -> "ScenarioPack":
+        """A copy of this pack whose batched partition runs in ``n``
+        sub-batches (default: every visible CUDA card for a plan on the
+        card, 1 on the CPU).
+
+        The engine pads the scenario axis up to a multiple of ``n`` (padding
+        rows replicate the last scenario and are dropped), so any B works;
+        results are identical to the unsharded sweep.  On a CUDA plan shard
+        i runs on ``cuda:i``, so ``n`` may not exceed the visible cards; on
+        a CPU plan the host runs the sub-batches one after another, the
+        twin of XLA's forced host devices, so any ``n >= 1`` works.
+        """
+        device = torch.device(self.plan.device)
+        if n is None:
+            n = torch.cuda.device_count() if device.type == "cuda" else 1
+        n = int(n)
+        shard_devices(device, n)        # validates n against the devices
+        return ScenarioPack(plan=self.plan, labels=self.labels,
+                            scenarios=self.scenarios, bat_idx=self.bat_idx,
+                            loop_idx=self.loop_idx, reason=self.reason,
+                            proc_args=self.proc_args, shards=n,
+                            loop_reasons=self.loop_reasons, ramps=self.ramps,
+                            # sharded sweeps key device arrays by shard
+                            # count, so the memo is safe (and warm) to share
+                            _cache=self._cache)
+
+    # ------------------------------------------------------------------
     def subset(self, indices: Sequence[int]) -> "ScenarioPack":
         """A row-subset copy: the selected scenarios only, no re-resolution.
 
@@ -230,7 +266,7 @@ class ScenarioPack:
                             bat_idx=new_bat, loop_idx=new_loop,
                             reason=next(iter(loop_reasons.values()), None),
                             proc_args=proc_args, loop_reasons=loop_reasons,
-                            ramps=self.ramps)
+                            shards=self.shards, ramps=self.ramps)
 
     # ------------------------------------------------------------------
     def override(self, inputs: Mapping[Any, Any]) -> "ScenarioPack":
@@ -294,6 +330,7 @@ class ScenarioPack:
                             bat_idx=self.bat_idx, loop_idx=self.loop_idx,
                             reason=self.reason, proc_args=proc_args,
                             loop_reasons=dict(self.loop_reasons),
+                            shards=self.shards,
                             ramps=_compute_ramps(proc_args))
 
 

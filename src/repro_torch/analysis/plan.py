@@ -33,7 +33,8 @@ all returning the unified :class:`~repro_torch.analysis.report.Report`.
 
 The plan lives on one device (``plan.device``): the CUDA card unless the
 caller passes ``device="cpu"`` (:func:`repro_torch.device.resolve_device`).
-The fused sweep runs there in float64, and the Report's curve queries run
+The fused sweep runs there in float64 (a sharded pack's sub-batch i on
+``cuda:i``, :meth:`ScenarioPack.shard`), and the Report's curve queries run
 there as CUDA kernels (plain versions on the CPU).
 """
 
@@ -383,7 +384,8 @@ class CompiledWorkflow:
 
         Returns an :class:`repro_torch.analysis.uncertainty.MCReport`; see
         that module for the sampler's bit-reproducibility contract.
-        ``shards`` other than None or 1 raises: the engine runs one device.
+        ``shards`` splits the draw axis into sub-batches
+        (:meth:`ScenarioPack.shard`); the report is the same bit for bit.
         """
         return run_mc(self, spec, n, seed=seed, backend=backend,
                       shards=shards,
@@ -451,12 +453,12 @@ class CompiledWorkflow:
         routes the batched partition to the level-fused torch engine on
         ``plan.device`` by default.  See
         :class:`~repro_torch.analysis.pack.ScenarioPack` for delta re-packs
-        (``pack.override``).
+        (``pack.override``) and sub-batches (``pack.shard``).
         """
         return ScenarioPack.build(self, scenario_list)
 
     def sweep(self, scenario_list: "Sequence[Scenario | ScenarioSpec] | ScenarioPack",
-              *, backend: str = "auto") -> Report:
+              *, backend: str = "auto", shards: int | None = None) -> Report:
         """Analyze B what-if scenarios in one batched pass.
 
         ``scenario_list`` is either a list of scenarios/specs or a
@@ -479,10 +481,19 @@ class CompiledWorkflow:
           numpy engine for plain lists; out-of-class scenarios fall back to
           the scalar loop with one summary warning.  Per-scenario routing
           is recorded in ``Report.backends``.
+
+        ``shards`` is ``plan.sweep(pack.shard(shards))`` (a list is
+        prepared first): the torch engine runs the batch in that many
+        sub-batches (:meth:`ScenarioPack.shard`), bit for bit the unsharded
+        sweep.
         """
         if backend not in SWEEP_BACKENDS:
             raise ValueError(f"unknown backend {backend!r} "
                              f"(expected {'|'.join(SWEEP_BACKENDS)})")
+        if shards is not None:
+            if not isinstance(scenario_list, ScenarioPack):
+                scenario_list = self.prepare(scenario_list)
+            scenario_list = scenario_list.shard(shards)
         if isinstance(scenario_list, ScenarioPack):
             pack = scenario_list
             if pack.plan is not self:
@@ -652,6 +663,7 @@ class CompiledWorkflow:
         # host_args is called only on device-cache miss; the engine then
         # stacks it by topology level (level_args) before the transfer
         results = self._torch_engine.solve(pack.host_args, pack.B_batched,
+                                           shards=pack.shards,
                                            cache=pack._cache,
                                            scenario_ids=pack.bat_idx,
                                            ramps=pack.ramps)

@@ -587,15 +587,15 @@ def run_mc(plan: Any, spec: Any, n: int = 10_000, *, seed: int = 0,
     The backing :meth:`CompiledWorkflow.sweep` call goes through the normal
     prepared-pack path (``backend="auto"`` routes the batched partition to
     the fused torch engine on ``plan.device``; ``"numpy"`` runs the host
-    numpy twin).  The engine runs one device: ``shards`` other than None or
-    1 raises.  Warnings: at most ONE fallback warning fires per call,
-    carrying the aggregate off-class rate, however many draws fell back.
+    numpy twin); ``shards`` optionally splits the draw axis into
+    sub-batches (:meth:`ScenarioPack.shard`).  Warnings: at most ONE
+    fallback warning fires per call, carrying the aggregate off-class rate,
+    however many draws fell back.
     """
-    if shards is not None and int(shards) != 1:
-        raise ValueError(f"the torch engine runs one device; shards={shards}"
-                         " is not supported")
     samples = sample_spec(plan, spec, n, seed=seed)
     pack = plan.prepare(samples.scenarios)
+    if shards is not None:
+        pack = pack.shard(int(shards))
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         rep = plan.sweep(pack, backend=backend)

@@ -159,7 +159,29 @@ def constrain(x: torch.Tensor, axes: tuple[str | None, ...],
 
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(r.mesh, r.placements_for(tuple(axes), tuple(shape or x.shape)))
+    placements = r.placements_for(tuple(axes), tuple(shape or x.shape))
+    y = x.redistribute(r.mesh, placements)
+    return _PinGrad.apply(y, placements) if y.requires_grad else y
+
+
+class _PinGrad(torch.autograd.Function):
+    """Identity forward; the backward redistributes the incoming gradient
+    to the forward's placements, as GSPMD constrains a cotangent to its
+    primal's sharding.  DTensor's eager backward would carry a partial sum
+    (the residual stream's gradient, summed from the next layer's
+    model-parallel products) on into the products before it, which then
+    run replicated over the model axis."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = tuple(placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g, None
 
 
 def local_apply(fn, args: tuple, axes: tuple, out_like: tuple):

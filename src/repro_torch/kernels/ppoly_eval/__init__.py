@@ -1,6 +1,7 @@
 from .ops import (
     pack_bpl_np,
     pack_ppoly_grid,
+    pack_ppolys,
     pack_ppolys_np,
     ppoly_eval,
     ppoly_first_crossing,
@@ -17,6 +18,6 @@ __all__ = [
     "ppoly_eval", "ppoly_eval_ref",
     "ppoly_min_eval", "ppoly_min_eval_ref",
     "ppoly_first_crossing", "ppoly_first_crossing_ref",
-    "pack_bpl_np", "pack_ppolys_np", "pack_ppoly_grid",
+    "pack_bpl_np", "pack_ppolys", "pack_ppolys_np", "pack_ppoly_grid",
     "PAD_START",
 ]

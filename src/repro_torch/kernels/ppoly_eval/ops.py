@@ -6,7 +6,8 @@
 * :func:`ppoly_first_crossing` — first ``t`` with ``f(t) >= y`` for monotone
   piecewise functions of degree <= 2 (batched finish-time extraction).
 * :func:`pack_ppolys_np` / :func:`pack_bpl_np` / :func:`pack_ppoly_grid` —
-  pad ``repro_torch.core.ppoly.PPoly`` objects into dense numpy arrays.
+  pad ``repro_torch.core.ppoly.PPoly`` objects into dense numpy arrays;
+  :func:`pack_ppolys` puts the first as float32 tensors on a device.
 
 The device of the inputs decides the route: CUDA tensors go to the CUDA
 kernels (:mod:`.kernel`), CPU tensors to the plain versions (:mod:`.ref`).
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...device import resolve_device
 from . import kernel
 from .ref import PAD_START, ppoly_eval_ref, ppoly_first_crossing_ref, ppoly_min_eval_ref
 
@@ -103,6 +105,17 @@ def pack_ppolys_np(ppolys, max_pieces: int | None = None, max_coef: int | None =
         starts[i, :n] = f.starts[:n]
         coeffs[i, :n, :k] = f.coeffs[:n, :k]
     return starts, coeffs
+
+
+def pack_ppolys(ppolys, max_pieces: int | None = None, max_coef: int | None = None,
+                *, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack a list of ``repro_torch.core.ppoly.PPoly`` into padded float32
+    ``(B, P)`` / ``(B, P, K)`` tensors on ``device`` (default: the CUDA
+    card), ready for :func:`ppoly_eval`."""
+    dev = resolve_device(device)
+    starts, coeffs = pack_ppolys_np(ppolys, max_pieces, max_coef, np.float32)
+    return (torch.as_tensor(starts, device=dev),
+            torch.as_tensor(coeffs, device=dev))
 
 
 def pack_bpl_np(starts, c0, c1, c2=None, dtype=np.float32):

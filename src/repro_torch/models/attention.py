@@ -101,7 +101,10 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     else:
         o = _dense_attention(qh, kh, vh, causal=True, window=cfg.window,
                              f32_scores=cfg.attn_f32)
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    # pinned to the heads axis as the head count divides, so the
+    # gradient's head split meets a placement it can view (24 heads on 16)
+    o = constrain(o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim),
+                  ("batch", "seq", "heads"), (B, S, cfg.n_heads))
     return o @ p.wo, (kh, vh)
 
 

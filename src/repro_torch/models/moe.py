@@ -18,23 +18,29 @@ Three variants (``cfg.moe_impl``):
   combine);
 * ``"shmap"`` — the reference's expert-parallel form. On one device it is
   the reference's meshless path, :func:`_bucketed_expert_math` over every
-  expert; sharding the experts over devices waits for a device mesh.
+  expert; on the dry-run's mesh each rank runs every expert on its batch
+  rows, as ``"local"`` does (no expert parallelism).
 
 Activation shardings are pinned with ``constrain(...)`` at the reference's
 three sites of the global form (the dispatched buffer, the expert outputs,
 the combined output): a no-op on plain tensors, a redistribution of
 ``DTensor``s in the dry-run. The expert products are plain
 batched matmuls and the scatters ``index_add_``/``scatter_add_``, as the
-reference computes them outside any Pallas kernel.
+reference computes them outside any Pallas kernel.  DTensor has no
+strategy for those scatters, so on a mesh they run through
+:func:`~repro_torch.distributed.local_apply`: the global form's dispatch on
+replicated tokens, the double scatter on each rank's batch rows.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed import constrain
+from ..distributed import constrain, local_apply
 from .common import ModelConfig
 
 __all__ = ["MoE", "moe_forward", "moe_forward_global", "moe_forward_local",
@@ -82,6 +88,18 @@ def _swiglu_experts(he: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     return torch.einsum("...ecf,efd->...ecd", F.silu(g) * u, w_down)
 
 
+def _dispatch(xt: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+              n_slots: int) -> torch.Tensor:
+    """The kept token copies of ``xt (N, D)`` summed into ``n_slots`` rows
+    (``K = slot.numel() // N`` copies a token, in token-major order)."""
+    K = slot.shape[0] // xt.shape[0]
+    src = torch.repeat_interleave(xt, K, dim=0)               # (N*K, D)
+    src = torch.where(keep[:, None], src, 0)
+    buf = torch.zeros((n_slots, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+    buf.index_add_(0, slot, src)
+    return buf
+
+
 def moe_forward_global(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D); ``p`` has ``router``, ``w_gate``, ``w_up``
     and ``w_down`` (:class:`MoE`)."""
@@ -101,11 +119,13 @@ def moe_forward_global(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     keep = pos < capacity
     slot = flat_expert * capacity + torch.where(keep, pos, 0)
 
-    # dispatch into a dense (E*capacity, D) buffer; a dropped copy adds 0
-    src = torch.repeat_interleave(xt, K, dim=0)               # (N*K, D)
-    src = torch.where(keep[:, None], src, 0)
-    buf = torch.zeros((E * capacity, D), dtype=xt.dtype, device=x.device)
-    buf.index_add_(0, slot, src)
+    # dispatch into a dense (E*capacity, D) buffer; a dropped copy adds 0.
+    # The slots index every token, so under DTensor the scatter runs on
+    # replicated tokens, one rank's whole buffer (DTensor has no strategy
+    # for index_add_); the expert constraint below then keeps each rank's
+    # experts, a local slice
+    buf = local_apply(partial(_dispatch, n_slots=E * capacity),
+                      (xt, slot, keep), ((None, None), (None,), (None,)), (0,))
     he = constrain(buf.reshape(E, capacity, D), ("experts", None, "act_embed"))
     out_e = constrain(_swiglu_experts(he, p.w_gate, p.w_up, p.w_down),
                       ("experts", None, "act_embed"))
@@ -121,7 +141,18 @@ def _double_scatter(x: torch.Tensor, gates: torch.Tensor, slot: torch.Tensor,
                     n_slots: int, w_gate, w_up, w_down) -> torch.Tensor:
     """Per batch row: scatter the kept token copies into ``n_slots`` expert
     slots (index ``n_slots`` is the sink of dropped copies), run the experts
-    and scatter-add their gated outputs back to the token positions."""
+    and scatter-add their gated outputs back to the token positions.  Under
+    DTensor it runs shard by shard over the batch rows, every expert on each
+    rank (DTensor has no strategy for these scatters)."""
+    rows, weight = ("batch", None, None), (None, None, None)
+    return local_apply(partial(_double_scatter_rows, n_slots=n_slots),
+                       (x, gates, slot, w_gate, w_up, w_down),
+                       (rows, rows, ("batch", None), weight, weight, weight),
+                       (0,))
+
+
+def _double_scatter_rows(x, gates, slot, w_gate, w_up, w_down, *,
+                         n_slots: int) -> torch.Tensor:
     B, S, D = x.shape
     K = slot.shape[1] // S
     E_loc = w_gate.shape[0]

@@ -51,7 +51,7 @@ from .engine import BatchProcResult
 from .plin import BPL, UnsupportedScenario, compose_scalar
 
 __all__ = ["IterationLadderExhausted", "TorchSweepEngine", "LazyCeilings",
-           "DEFAULT_ITER_CAP", "MAX_ITER_CAP", "trace_report"]
+           "DEFAULT_ITER_CAP", "MAX_ITER_CAP", "shard_devices", "trace_report"]
 
 _F64 = torch.float64
 _aten = torch.ops.aten
@@ -1043,6 +1043,46 @@ def _tree_map(fn, x):
     return fn(x)
 
 
+def shard_devices(device, shards: int) -> list[torch.device]:
+    """The device each of ``shards`` sub-batches of a sweep on ``device``
+    runs on.  On a CUDA card shard i runs on ``cuda:i``, so ``shards`` may
+    not exceed the visible cards (one shard stays on ``device``); on the CPU
+    the host runs the sub-batches one after another, so any count works."""
+    device = torch.device(device)
+    if shards < 1:
+        raise ValueError(f"shard count must be >= 1, got {shards}")
+    if device.type == "cpu" or shards == 1:
+        return [device] * shards
+    n = torch.cuda.device_count()
+    if shards > n:
+        raise ValueError(f"shards={shards} but only {n} CUDA device(s) are "
+                         "visible")
+    return [torch.device("cuda", i) for i in range(shards)]
+
+
+def _pad_rows(largs: list, B: int, Bp: int) -> list:
+    """Every full-batch rows axis padded to ``Bp`` by replicating the last
+    scenario (single-row broadcast arrays are left alone)."""
+    def pad(a):
+        a = np.asarray(a)
+        if a.ndim < 2 or a.shape[-2] != B:
+            return a
+        return np.concatenate([a] + [a[..., -1:, :]] * (Bp - B), axis=-2)
+
+    return _tree_map(pad, largs)
+
+
+def _shard_rows(largs: list, Bp: int, lo: int, n: int) -> list:
+    """Rows ``[lo, lo + n)`` of every full-batch (``Bp``-row) array."""
+    def rows(a):
+        a = np.asarray(a)
+        if a.ndim < 2 or a.shape[-2] != Bp:
+            return a
+        return a[..., lo:lo + n, :]
+
+    return _tree_map(rows, largs)
+
+
 class TorchSweepEngine:
     """Level-fused lockstep solver for one :class:`CompiledWorkflow`, on the
     plan's device.
@@ -1061,6 +1101,8 @@ class TorchSweepEngine:
         self.device = torch.device(plan.device)
         self.iter_cap = int(iter_cap)
         self._consts = [ls.tensors(self.device) for ls in self.spec.levels]
+        #: the level constants on each device a shard has run on
+        self._consts_on = {self.device: self._consts}
         #: per-(B, shards, ramps) iteration budgets proven by past solves, so
         #: re-sweeps skip the overflow ladder without one deep workload
         #: ratcheting the budget (and the record-buffer cost) for all shapes
@@ -1075,12 +1117,11 @@ class TorchSweepEngine:
 
     # -- one level's inputs -------------------------------------------------
     def _level_inputs(self, ls, la, B: int, arity: int, finish_by: dict,
-                      progress_by: dict):
-        """``(t0, C, IR)`` of one level: start times from the gates' finish
-        times, the ceilings (edge-fed ones composed against upstream
-        progress on the device) and the resource planes, each broadcast to
-        ``(·, Lp, B, P)``."""
-        dev = self.device
+                      progress_by: dict, dev: torch.device):
+        """``(t0, C, IR)`` of one level on ``dev``: start times from the
+        gates' finish times, the ceilings (edge-fed ones composed against
+        upstream progress on the device) and the resource planes, each
+        broadcast to ``(·, Lp, B, P)``."""
         Lp = len(ls.procs)
         rows = []
         for ps in ls.procs:
@@ -1114,8 +1155,14 @@ class TorchSweepEngine:
         return t0, C, IR
 
     # -- one sweep at a fixed iteration budget ------------------------------
-    def _make_run(self, B: int, iter_cap: int, ramps: bool, mark=None):
-        spec, consts, dev = self.spec, self._consts, self.device
+    def _make_run(self, B: int, iter_cap: int, ramps: bool, mark=None,
+                  device: torch.device | None = None):
+        """One sweep of ``B`` rows on ``device`` (the engine's by default):
+        ``run(largs)`` returns the device results, or None on overflow."""
+        dev = self.device if device is None else device
+        if dev not in self._consts_on:
+            self._consts_on[dev] = [ls.tensors(dev) for ls in self.spec.levels]
+        spec, consts = self.spec, self._consts_on[dev]
         arity = 4 if ramps else 3
 
         def run(largs):
@@ -1123,7 +1170,7 @@ class TorchSweepEngine:
             solved = []                 # (level, t0, result) in level order
             for ls, la, k in zip(spec.levels, largs, consts):
                 t0, C, IR = self._level_inputs(ls, la, B, arity, finish_by,
-                                               progress_by)
+                                               progress_by, dev)
                 res = _solve_level(ls, k, C, IR, t0, B, iter_cap, ramps,
                                    mark=mark)
                 if res["overflow"]:   # the ladder retries at a larger budget
@@ -1213,7 +1260,7 @@ class TorchSweepEngine:
             makespan = torch.zeros(B, dtype=_F64, device=self.device)
             for li, (ls, la, k) in enumerate(zip(spec.levels, largs, consts)):
                 t0, C, IR = self._level_inputs(ls, la, B, arity, finish_by,
-                                               progress_by)
+                                               progress_by, self.device)
                 if IR is not None and apply_theta is not None:
                     IR = apply_theta(IR, li, theta)
                 res = _solve_level(ls, k, C, IR, t0, B, iter_cap, ramps,
@@ -1288,10 +1335,13 @@ class TorchSweepEngine:
             largs.append(la)
         return largs
 
-    def device_args(self, largs: list) -> list:
-        """Numpy level pytree -> float64 tensors on the engine's device."""
+    def device_args(self, largs: list, device: torch.device | None = None,
+                    ) -> list:
+        """Numpy level pytree -> float64 tensors on ``device`` (the
+        engine's by default)."""
+        dev = self.device if device is None else device
         return _tree_map(lambda a: torch.as_tensor(np.asarray(a, np.float64),
-                                                   device=self.device), largs)
+                                                   device=dev), largs)
 
     # -- the public solve ---------------------------------------------------
     def solve(self, args, B: int, *, shards: int = 1,
@@ -1305,22 +1355,34 @@ class TorchSweepEngine:
         ``ramps`` is the static degree switch (see :func:`_solve_level`):
         pass True when any packed resource input has a non-zero slope or any
         packed function a quadratic plane — the pack computes this once
-        (:attr:`ScenarioPack.ramps`).  Only ``shards == 1`` is supported.
+        (:attr:`ScenarioPack.ramps`).
+
+        With ``shards > 1`` the scenario axis is padded up to a multiple of
+        the shard count (padding rows replicate the last scenario, are
+        solved redundantly, and are dropped) and split into ``shards``
+        sub-batches, each run on its device of :func:`shard_devices` at one
+        common iteration budget; the results are the unsharded sweep's, bit
+        for bit.
         """
-        if int(shards) != 1:
-            raise ValueError(f"the torch engine runs one device; shards={shards}"
-                             " is not supported")
+        shards = int(shards)
         ramps = bool(ramps)
-        key = ("dev", B, str(self.device))
+        devices = shard_devices(self.device, shards)
+        Bp = -(-B // shards) * shards
+        Bs = Bp // shards
+        key = ("dev", Bp, shards, str(self.device))
         if cache is not None and key in cache:
             dev_args = cache[key]
         else:
             if callable(args):
                 args = args()
-            dev_args = self.device_args(self.level_args(args, B, ramps))
+            largs = self.level_args(args, B, ramps)
+            if Bp != B:
+                largs = _pad_rows(largs, B, Bp)
+            dev_args = [self.device_args(_shard_rows(largs, Bp, i * Bs, Bs), d)
+                        for i, d in enumerate(devices)]
             if cache is not None:
                 cache[key] = dev_args
-        pkey = (B, 1, ramps)
+        pkey = (Bp, shards, ramps)
         if pkey in self._adopted:
             self.warm_hits += 1
         else:
@@ -1328,8 +1390,13 @@ class TorchSweepEngine:
         first = pkey not in self._proven_caps
         cap = self._proven_caps.get(pkey, self.iter_cap)
         while True:
-            out = self._make_run(B, cap, ramps)(dev_args)
-            if out is not None:
+            outs = []
+            for a, d in zip(dev_args, devices):
+                out = self._make_run(Bs, cap, ramps, device=d)(a)
+                if out is None:     # every shard retries at the same budget
+                    break
+                outs.append(out)
+            if len(outs) == shards:
                 break
             cap *= 2
             if cap > MAX_ITER_CAP:
@@ -1342,11 +1409,11 @@ class TorchSweepEngine:
             # successful solve tightens the proven cap to the actual event
             # depth (next power of two); later deeper packs still double back
             # up through the overflow ladder
-            actual = max((out[ps.name]["iterations"] for ps in self.spec.procs),
-                         default=1)
+            actual = max((o[ps.name]["iterations"] for o in outs
+                          for ps in self.spec.procs), default=1)
             cap = min(cap, 1 << max(actual - 1, 0).bit_length())
         self._proven_caps[pkey] = cap
-        return self._wrap(out, B, scenario_ids)
+        return self._wrap(outs, B, scenario_ids)
 
     def proven_caps_rows(self) -> list[tuple]:
         """Proven iteration budgets as rows (B, shards, ramps, cap)."""
@@ -1363,15 +1430,17 @@ class TorchSweepEngine:
                 self._proven_caps[key] = int(cap)
                 self._adopted.add(key)
 
-    def _wrap(self, out, B: int, scenario_ids: list[int] | None = None,
+    def _wrap(self, outs: list, B: int, scenario_ids: list[int] | None = None,
               ) -> dict[str, BatchProcResult]:
-        def host(x):
-            return x.cpu().numpy()[:B]
+        """Host results of the runs' device ``outs`` (one per shard, in row
+        order), without the padding rows."""
+        def host(get):
+            return np.concatenate([get(o).cpu().numpy() for o in outs])[:B]
 
         results: dict[str, BatchProcResult] = {}
         for ps in self.spec.procs:
-            r = out[ps.name]
-            finish = host(r["finish"])
+            r = outs[0][ps.name]
+            finish = host(lambda o: o[ps.name]["finish"])
             # gate-never-finishes: same error surface as the numpy engine;
             # t_start is re-derived from the gate finishes (not shipped back)
             t0 = np.zeros(B)
@@ -1384,9 +1453,10 @@ class TorchSweepEngine:
                     raise ValueError(f"gate {g!r} of {ps.name!r} never "
                                      f"finishes (scenario {bad})")
                 t0 = np.maximum(t0, gf)
-            progress = BPL(*(host(a) for a in r["progress"]))
+            progress = BPL(*(host(lambda o, j=j: o[ps.name]["progress"][j])
+                             for j in range(len(r["progress"]))))
             K, L = len(ps.data_names), len(ps.res_names)
-            share = host(r["share"])
+            share = host(lambda o: o[ps.name]["share"])
             kinds = ["data"] * K + ["resource"] * L
             names = list(ps.data_names) + list(ps.res_names)
             if not K:
@@ -1396,7 +1466,7 @@ class TorchSweepEngine:
                 name=ps.name, p_end=ps.p_end, t_start=t0,
                 finish=finish, progress=progress, ceilings=None,
                 factor_kinds=kinds, factor_names=names, share_seconds=share,
-                iterations=int(r["iterations"]))
+                iterations=max(int(o[ps.name]["iterations"]) for o in outs))
         return results
 
 
@@ -1484,7 +1554,7 @@ def trace_report(plan, pack, *, iter_cap: int | None = None) -> dict:
     with torch.no_grad(), _OpCensus() as c:
         out = eng._make_run(B, cap, ramps, mark=c.mark)(dev_args)
         if out is not None:
-            eng._wrap(out, B)
+            eng._wrap([out], B)
     with torch.no_grad(), _OpCensus() as f:
         makespan, _overflow = eng.make_diff_run(B, cap, ramps,
                                                 mark=f.mark)(dev_args, None)

@@ -85,6 +85,57 @@ def test_skip_existing(decode_record, capsys):
     assert not dist.is_initialized()
 
 
+@pytest.mark.parametrize("arch,variant", [
+    ("qwen3-moe-235b-a22b", None), ("kimi-k2-1t-a32b", None),
+    ("jamba-v0.1-52b", None), ("qwen3-moe-235b-a22b", "moe_local"),
+    ("qwen3-moe-235b-a22b", "moe_shmap")])
+def test_moe_and_hybrid_smoke_count_on_a_2x4_mesh(arch, variant):
+    """The MoE dispatch (``index_add_`` and the double scatter, which
+    DTensor has no strategy for) counts on a fake (2, 4) mesh: every kind
+    of step, rank 0 below the whole step and above an eighth of it."""
+    from repro_torch import configs
+    from repro_torch.distributed import axis_rules
+    from repro_torch.launch.mesh import make_fake_mesh, make_host_mesh, release_process_group
+    from repro_torch.launch.specs import count_cell, make_cell
+
+    cfg = configs.get_smoke_config(arch)
+    if variant:
+        cfg = configs.apply_variants(cfg, [variant])
+    for kind in ("train", "prefill", "decode"):
+        shape = configs.ShapeSpec("s", 64, 4, kind)
+        host = make_host_mesh()
+        with axis_rules(host):
+            whole = count_cell(make_cell(cfg, shape), host).flops
+        mesh = make_fake_mesh((2, 4), ("data", "model"))
+        try:
+            with axis_rules(mesh):
+                dev = count_cell(make_cell(cfg, shape), mesh).flops
+        finally:
+            release_process_group()
+        assert whole / 8 <= dev < whole, (kind, dev, whole)
+    assert not dist.is_initialized()
+
+
+def test_uneven_head_split_trains_on_a_2x4_mesh():
+    """starcoder2 smoke (6 heads on a model axis of 4, as musicgen's 24 on
+    16): the gradient pinned at the attention output meets the head split
+    on a placement it can view."""
+    from repro_torch import configs
+    from repro_torch.distributed import axis_rules
+    from repro_torch.launch.mesh import make_fake_mesh, release_process_group
+    from repro_torch.launch.specs import count_cell, make_cell
+
+    cfg = configs.get_smoke_config("starcoder2-15b")
+    assert cfg.n_heads % 4
+    mesh = make_fake_mesh((2, 4), ("data", "model"))
+    try:
+        with axis_rules(mesh):
+            rep = count_cell(make_cell(cfg, configs.ShapeSpec("s", 64, 4, "train")), mesh)
+    finally:
+        release_process_group()
+    assert rep.flops > 0
+
+
 def test_failed_cell_is_recorded(monkeypatch, tmp_path):
     """A cell that raises records ``status: "error"`` with its traceback,
     the sweep goes on, the run exits 1, and the process group is gone."""

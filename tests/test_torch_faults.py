@@ -163,8 +163,7 @@ def test_nan_rows_degrade_to_numpy_with_parity(plan, ref):
 
 def test_degradation_composes_with_prepared_packs(plan, ref):
     """A prepared pack submitted as its own request degrades the same way
-    (the reference's twin runs it through ``pack.shard``; the port has one
-    device)."""
+    (sharded: :func:`test_degradation_composes_with_sharded_packs`)."""
     pack = plan.prepare(_scenarios())
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
@@ -173,6 +172,26 @@ def test_degradation_composes_with_prepared_packs(plan, ref):
             rep = svc.submit_pack(pack).result(timeout=T)
     assert rep.degraded_indices == [0, 2]
     np.testing.assert_allclose(rep.makespans, ref.makespans, rtol=1e-9)
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_degradation_composes_with_sharded_packs(plan, ref, n):
+    """The reference's case: a sharded pack degrades its poisoned rows to
+    the numpy twin; the clean rows are the unsharded sweep's, bit for
+    bit."""
+    pack = plan.prepare(_scenarios())
+    clean = plan.sweep(pack, backend="torch")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with _service(faults=FaultPlan(nan_rows=(0, 2),
+                                       nan_sweep=None)) as svc:
+            rep = svc.submit_pack(pack.shard(n)).result(timeout=T)
+            snap = svc.snapshot()
+    assert rep.degraded_indices == [0, 2] and snap["degraded"] == 2, snap
+    assert rep.backends == ["degraded", "torch", "degraded", "torch"]
+    np.testing.assert_allclose(rep.makespans, ref.makespans, rtol=1e-9)
+    np.testing.assert_array_equal(rep.makespans[[0, 2]], ref.makespans[[0, 2]])
+    np.testing.assert_array_equal(rep.makespans[[1, 3]], clean.makespans[[1, 3]])
 
 
 def test_degraded_rows_survive_coalescing(plan, ref):

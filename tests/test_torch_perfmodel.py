@@ -7,8 +7,11 @@ roofline terms and step-model predictions at rtol 1e-9 under the
 reference's TPU v5e constants (the same float arithmetic, so only the
 last bits may differ); per-device FLOPs on a 1×1 mesh within 2 % of the
 reference's HLO dot count on its host mesh (measured: equal for every
-yi-9b cell and rwkv6's prefill and decode, 0.9928 for rwkv6's train step,
-whose reference einsum counts a batch-only contraction as a dot).
+yi-9b, qwen3-moe and kimi-k2 cell, rwkv6's and jamba's prefill and decode,
+0.9928 for rwkv6's train step, whose reference einsum counts a batch-only
+contraction as a dot, and 1.0031 for jamba's).  On a (2, 4) mesh rank 0 of
+yi-9b counts at most 1.20x (train) and 1.143x (prefill) the reference's
+per-device FLOPs.
 """
 
 import dataclasses
@@ -327,7 +330,8 @@ def _port_flops(arch, S, B, kind, mesh=None):
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-@pytest.mark.parametrize("arch", ["yi-9b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "rwkv6-1.6b", "qwen3-moe-235b-a22b",
+                                  "kimi-k2-1t-a32b", "jamba-v0.1-52b"])
 def test_per_device_flops_match_reference(arch, kind):
     got, want = _port_flops(arch, 64, 4, kind), _jax_smoke_flops(arch, 64, 4, kind)
     ratio = got / want
@@ -353,12 +357,20 @@ print("FLOPS", __import__("json").dumps(out))
 """
 
 
+#: rank 0's FLOPs over the reference's per-device FLOPs on the (2, 4) mesh,
+#: at most (measured with torch 2.13: 1.1765 and 1.1429).  The rest is the
+#: kv projections, replicated over "model" by the rules in both packages,
+#: whose products and gradients DTensor places otherwise than GSPMD.
+MAX_2X4_RATIO = {"train": 1.20, "prefill": 1.143}
+
+
 def test_2x4_mesh_flops_lie_between_global_over_8_and_global():
     """yi-9b smoke on a (2, 4) data x model mesh: rank 0's FLOPs lie between
-    the 1x1 count / 8 and the 1x1 count.  The ratio to the reference's
-    per-device count on the same mesh shape (eight fake CPU devices, in a
-    child process) is printed, not held: the two partitioners choose their
-    own layouts."""
+    the 1x1 count / 8 and the 1x1 count, and within MAX_2X4_RATIO of the
+    reference's per-device count on the same mesh shape (eight fake CPU
+    devices, in a child process).  The train bar holds ``constrain``'s
+    gradient pin: without it the backward's products ran replicated over
+    the model axis (1.529x)."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu"}
     env.pop("XLA_FLAGS", None)
     out = subprocess.run([sys.executable, "-c", _JAX_2X4], capture_output=True, text=True,
@@ -376,6 +388,7 @@ def test_2x4_mesh_flops_lie_between_global_over_8_and_global():
               f"({dev / whole:.4f} of the whole); reference {ref[kind]:.6e}; "
               f"port / reference {dev / ref[kind]:.4f}")
         assert whole / 8 <= dev <= whole
+        assert dev / ref[kind] <= MAX_2X4_RATIO[kind], (kind, dev / ref[kind])
 
 
 def test_grad_accumulation_counts_the_same_products():
