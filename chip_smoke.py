@@ -88,7 +88,11 @@ then a float32 prefill against a token-by-token decode at B = 2, 32
 tokens, capacity drops off, at the reference's max abs 2e-2),
 lm_prefill_jamba and lm_serve_jamba (jamba-v0.1-52b, 8 of 32 layers: one
 period, 7 Mamba layers, attention at position 4 with one flash call at
-GQA group 4, 4 MoE layers; the same checks), then training:
+GQA group 4, 4 MoE layers; the same checks), lm_prefill_kimi and
+lm_serve_kimi (kimi-k2-1t-a32b, 1 of 61 layers: one flash call at GQA
+group 8, 384 experts; the same checks, the float32 one on the smoke
+config: one full-width layer in float32 does not fit beside its working
+set), then training:
 train_grad_kernels (the flash and wkv6 autograd wrappers on seeded card
 tensors: forward bit for bit the kernel's, every gradient against the
 plain version's autograd gradient), train_100m
@@ -112,17 +116,19 @@ roofline terms, the BottleMod step model's prediction, every step at or
 above its compute bound) and dryrun_cells (``python -m
 repro_torch.launch.dryrun`` in a child process for rwkv6-1.6b decode_32k,
 yi-9b train_4k and qwen3-moe-235b-a22b decode_32k on the 256-card fake
-mesh), examples_torch (``examples/quickstart_torch.py`` and
-``examples/sweep_allocations_torch.py`` on the card, each in its own
-process, each exiting with 0); then the
+mesh; each cell's FLOPs a card beside its count before the sharded-mesh
+repair), examples_torch (the six example twins, ``examples/*_torch.py``,
+on the card, each in its own process, each exiting with 0; four of them
+also on the CPU, one printed quantity of each held against that run);
+then the
 per-kernel line with launches on each path, errors and times at each
 path's shapes (also with the L2 flushed between launches, the "tile"
 route on the same inputs, and ptxas registers and spills; for the crossing
 the launch floor).  The launch counts are
 set to 0 just before each path is driven and read just after it; the
 ppoly and flash rows carry each path's counts in ``launches_by_path``;
-the flash row also times the kernel at the MoE and Jamba prefill shapes
-(``by_shape``).
+the flash row also times the kernel at the MoE, Jamba and kimi-k2
+prefill shapes (``by_shape``).
 
 Imports nothing of JAX or of the reference package.  Exits with code 2 and
 prints no result when no CUDA device is present or when the port's sources
@@ -203,6 +209,9 @@ SHARED_FRACS = (0.5, 0.75, 0.93)
 #: attention at position 4, 4 MoE layers)
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
 JAMBA_ARCH, JAMBA_LAYERS = "jamba-v0.1-52b", 8
+#: kimi-k2 at full width, one layer: its 384 experts take 33.8 GB in bf16
+#: and the embedding and unembedding 4.7 GB
+KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 1
 #: float32 prefill vs decode: (B, S) and the reference's max abs bar
 #: (tests/test_arch_smoke.py)
 XCHECK_SHAPE = (2, 32)
@@ -240,10 +249,30 @@ ATTN_BF16_LAYERS = 2
 #: MoE cell counts its expert dispatch shard by shard
 DRYRUN_CELLS = (("rwkv6-1.6b", "decode_32k"), ("yi-9b", "train_4k"),
                 ("qwen3-moe-235b-a22b", "decode_32k"))
+#: each cell's FLOPs a card before the sharded-mesh repair of the decode
+#: step, the kv projections and the MoE forms (the same dry-run before that
+#: repair, torch 2.13 on a CPU; yi-9b's train count torch 2.11's on the
+#: card's host)
+DRYRUN_FLOPS_BEFORE = {"rwkv6-1.6b_decode_32k": 1_746_403_328.0,
+                       "yi-9b_train_4k": 412_574_558_453_760.0,
+                       "qwen3-moe-235b-a22b_decode_32k": 1_105_351_671_808.0}
 #: the Fig. 7 pack's shard count on the CPU: not a divisor of B = 600
 CPU_SHARDS = 7
 #: the example twins run on the card, each in its own process
-EXAMPLES_TORCH = ("quickstart_torch.py", "sweep_allocations_torch.py")
+EXAMPLES_TORCH = ("quickstart_torch.py", "sweep_allocations_torch.py",
+                  "compile_once_torch.py", "optimize_allocations_torch.py",
+                  "risk_analysis_torch.py", "workflow_analysis_torch.py")
+#: one printed quantity of an example twin, held against the same twin's
+#: run on the CPU at tests/test_sweep.py's rtol 1e-5 or one unit in the
+#: last printed place, whichever is larger: the 9-cell grid's best makespan,
+#: the optimum, the Monte Carlo p95, the refined model at a 0.95 share
+EXAMPLE_QUANTITY = {
+    "compile_once_torch.py": r"swept a 9-cell grid; best: \(\d+, '[^']*', ([\d.]+)\)",
+    "optimize_allocations_torch.py": r"^\s*value\s+([\d.]+)",
+    "risk_analysis_torch.py": r"^makespan: p50=[\d.]+s, p95=([\d.]+)s",
+    "workflow_analysis_torch.py": r"^\s*0\.95\s+[\d.]+\s+([\d.]+)",
+}
+EXAMPLE_RTOL = 1e-5
 
 
 #: every phase's JSON line, by phase, for the phases that reuse what an
@@ -2270,23 +2299,51 @@ def phase_shard_sweep(paper, scenarios, kernel):
     return launches, errs
 
 
+def printed_quantity(name: str, text: str) -> str:
+    """The quantity EXAMPLE_QUANTITY names, as ``name`` printed it."""
+    import re
+
+    m = re.search(EXAMPLE_QUANTITY[name], text, re.M)
+    check(m is not None, f"{name}: no line matches {EXAMPLE_QUANTITY[name]!r}")
+    return m.group(1)
+
+
+def printed_close(got: str, want: str) -> bool:
+    """Two printed numbers agree at EXAMPLE_RTOL or one unit in the last
+    place printed, whichever is larger."""
+    places = len(want.split(".")[1]) if "." in want else 0
+    return abs(float(got) - float(want)) <= max(EXAMPLE_RTOL * abs(float(want)),
+                                                10.0 ** -places)
+
+
 def phase_examples_torch():
     """The example twins on the card (their default device), each in its
-    own process, started together: each exits with 0; their first and last
-    lines and wall times."""
+    own process, and the twins of EXAMPLE_QUANTITY on the CPU, all started
+    together: each exits with 0; the card's printed quantity against the
+    CPU's; their first and last lines and wall times."""
     t0 = time.perf_counter()
     runs = {}
+    cpu_names = tuple(EXAMPLE_QUANTITY)
     results = run_children([[sys.executable, str(ROOT / "examples" / name)]
-                            for name in EXAMPLES_TORCH], timeout=300)
-    for name, (res, wall) in zip(EXAMPLES_TORCH, results):
+                            for name in EXAMPLES_TORCH]
+                           + [[sys.executable, str(ROOT / "examples" / name), "--device", "cpu"]
+                              for name in cpu_names], timeout=300)
+    for name, (res, wall) in zip(EXAMPLES_TORCH + cpu_names, results):
         check(res.returncode == 0, f"{name}: exit {res.returncode}\n"
                                    f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    for name, (res, wall) in zip(EXAMPLES_TORCH, results):
         lines = res.stdout.strip().splitlines()
         runs[name] = {"wall_s": wall, "first": lines[0], "last": lines[-1]}
+    for name, (res, wall) in zip(cpu_names, results[len(EXAMPLES_TORCH):]):
+        card = printed_quantity(name, results[EXAMPLES_TORCH.index(name)][0].stdout)
+        cpu = printed_quantity(name, res.stdout)
+        check(printed_close(card, cpu), f"{name}: the card printed {card}, the CPU {cpu}")
+        runs[name].update(quantity=EXAMPLE_QUANTITY[name], card=card, cpu=cpu,
+                          cpu_wall_s=wall)
     check("shard(s)" in runs["sweep_allocations_torch.py"]["first"]
           and "cuda" in runs["sweep_allocations_torch.py"]["first"],
           f"sweep_allocations_torch.py: {runs['sweep_allocations_torch.py']['first']}")
-    emit("examples_torch", runs=runs, seconds=time.perf_counter() - t0)
+    emit("examples_torch", runs=runs, rtol=EXAMPLE_RTOL, seconds=time.perf_counter() - t0)
 
 
 # ------------------------------------------- MoE and Mamba families ----
@@ -2400,9 +2457,11 @@ def serve_cut(arch: str, model) -> dict:
     import torch
     from repro_torch.launch import serve
 
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     out = serve.main(["--arch", arch, "--no-smoke"], params=model)
     launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
     gen = out["continuations"]
     check(gen.shape == (8, 16) and out["requests"] == 8, f"served {gen.shape}")
     check(bool(torch.isfinite(out["prompt_logits"]).all()),
@@ -2413,7 +2472,7 @@ def serve_cut(arch: str, model) -> dict:
             "prompt_len": out["prompt_len"], "generated": out["generated"],
             "wall_s": out["wall_s"], "tok_s": out["tok_s"],
             "median_step_ms": out["median_step_ms"], "sample": out["sample"],
-            "launches": launches, "decode_trace": trace}
+            "peak_memory_bytes": peak, "launches": launches, "decode_trace": trace}
 
 
 def crosscheck_f32(cfg) -> dict:
@@ -3274,7 +3333,8 @@ def phase_dryrun_cells():
         p = predict(from_dryrun_record(rec, n_steps=10, data_rate_steps_per_s=1e6))
         check(p.step_time_s > 0, f"{arch} {shape}: step time {p.step_time_s}")
         cells[f"{arch}_{shape}"] = {
-            **rec["per_device"], "dominant": rr["dominant"], "compute_s": rr["compute_s"],
+            **rec["per_device"], "flops_before_repair": DRYRUN_FLOPS_BEFORE[f"{arch}_{shape}"],
+            "dominant": rr["dominant"], "compute_s": rr["compute_s"],
             "memory_s": rr["memory_s"], "collective_s": rr["collective_s"],
             "useful_flops_ratio": rr["useful_flops_ratio"], "n_ops": rec["collectives"]["n_ops"],
             "count_s": rec["count_s"], "wall_s": wall, "predicted_step_s": p.step_time_s,
@@ -3447,8 +3507,15 @@ def main() -> int:
     flash["launches_by_path"] = {"lm_prefill": flash["launches"],
                                  "attn_bf16_card": attn_bf16_launches["flash_attention"]}
     flash["by_shape"] = {}
-    for arch, depth, tag in ((MOE_ARCH, MOE_LAYERS, "moe"),
-                             (JAMBA_ARCH, JAMBA_LAYERS, "jamba")):
+    cut_s = {}
+    from repro_torch.configs import get_smoke_config
+
+    # kimi-k2's float32 check runs on its smoke config: one full-width layer
+    # in float32 takes about 77 GB
+    for arch, depth, tag, f32_cfg in (
+            (MOE_ARCH, MOE_LAYERS, "moe", None), (JAMBA_ARCH, JAMBA_LAYERS, "jamba", None),
+            (KIMI_ARCH, KIMI_LAYERS, "kimi", get_smoke_config(KIMI_ARCH))):
+        t_cut = time.perf_counter()
         cfg, model, cut_launches, err, first = phase_lm_prefill_cut(
             f"lm_prefill_{tag}", arch, depth)
         flash["launches_by_path"][f"lm_prefill_{tag}"] = cut_launches["flash_attention"]
@@ -3459,10 +3526,13 @@ def main() -> int:
         del model
         gc.collect()
         torch.cuda.empty_cache()
-        emit(f"lm_serve_{tag}", reduced=cut_config(arch, depth)[1], **served,
-             **crosscheck_f32(cfg))
+        xcheck = crosscheck_f32(f32_cfg or cfg)
+        if f32_cfg is not None:
+            xcheck["crosscheck_f32_config"] = f32_cfg.name
+        emit(f"lm_serve_{tag}", reduced=cut_config(arch, depth)[1], **served, **xcheck)
         gc.collect()
         torch.cuda.empty_cache()
+        cut_s[tag] = time.perf_counter() - t_cut
     # ---- training: the kernels' gradients, then each training path ----
     t_train = time.perf_counter()
     phase_train_grad_kernels()
@@ -3496,6 +3566,7 @@ def main() -> int:
          bf16_and_perfmodel_phases_s=sum(EMITTED[p]["seconds"] for p in new_phases),
          shard_and_examples_phases_s=sum(EMITTED[p]["seconds"]
                                          for p in ("shard_sweep", "examples_torch")),
+         cut_families_s=cut_s,
          analysis_peak_memory_bytes=analysis_peak,
          peak_memory_bytes=torch.cuda.max_memory_allocated())
     print(smi, flush=True)

@@ -34,8 +34,9 @@ from typing import Any
 
 import torch
 
-__all__ = ["DEFAULT_RULES", "AxisRules", "axis_rules", "constrain",
-           "current_rules", "local_apply", "placements_for", "tree_shardings"]
+__all__ = ["DEFAULT_RULES", "AxisRules", "axis_index", "axis_rules", "constrain",
+           "current_rules", "is_sharded", "local_apply", "placements_for",
+           "tree_shardings"]
 
 # default rule table: logical name -> tuple of candidate mesh axes
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
@@ -135,6 +136,23 @@ def current_rules() -> AxisRules | None:
     return getattr(_tls, "rules", None)
 
 
+def is_sharded(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a ``DTensor`` under active rules: the dry-run on a
+    mesh, where a step may take the reference's form of a product instead
+    of the plain program's (one card, or counting on a 1x1 mesh)."""
+    if current_rules() is None:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def axis_index(name: str) -> int:
+    """This rank's coordinate along mesh axis ``name`` of the active rules'
+    mesh: the reference's ``jax.lax.axis_index`` in a ``shard_map`` body."""
+    return current_rules().mesh.get_local_rank(name)
+
+
 def placements_for(axes: tuple[str | None, ...], shape: tuple[int, ...]) -> tuple:
     """:meth:`AxisRules.placements_for` under the active rules."""
     r = current_rules()
@@ -184,7 +202,8 @@ class _PinGrad(torch.autograd.Function):
         return g, None
 
 
-def local_apply(fn, args: tuple, axes: tuple, out_like: tuple):
+def local_apply(fn, args: tuple, axes: tuple, out_like: tuple,
+                reduce_over: str | None = None):
     """``fn(*args)`` computed shard by shard, for a function that is local
     to the sharded dimensions (attention and the wkv recurrence are local to
     each batch row and head).  Under active rules, with a ``DTensor`` among
@@ -193,12 +212,15 @@ def local_apply(fn, args: tuple, axes: tuple, out_like: tuple):
     the placements of argument ``out_like[i]``: no communication inside
     ``fn``, as GSPMD partitions the reference's einsums.  DTensor's own
     propagation would reshape across sharded dimensions and gather or
-    reduce whole score and decay tensors instead.  Otherwise ``fn(*args)``.
+    reduce whole score and decay tensors instead.  With ``reduce_over`` (a
+    mesh axis that argument ``out_like[i]`` is replicated over), each rank's
+    output is its partial sum, all-reduced over that axis: the reference's
+    ``psum`` at the end of a ``shard_map`` body.  Otherwise ``fn(*args)``.
     """
     r = current_rules()
     if r is None:
         return fn(*args)
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate
 
     if not any(isinstance(a, DTensor) for a in args):
         return fn(*args)
@@ -210,9 +232,17 @@ def local_apply(fn, args: tuple, axes: tuple, out_like: tuple):
         placed.append(a.redistribute(r.mesh, r.placements_for(ax, tuple(a.shape))))
     outs = fn(*(a.to_local() for a in placed))
     single = isinstance(outs, torch.Tensor)
-    wrapped = tuple(DTensor.from_local(o, r.mesh, placed[i].placements, run_check=False)
-                    for o, i in zip((outs,) if single else outs, out_like, strict=True))
-    return wrapped[0] if single else wrapped
+    wrapped = []
+    for o, i in zip((outs,) if single else outs, out_like, strict=True):
+        want = placed[i].placements
+        if reduce_over is None:
+            wrapped.append(DTensor.from_local(o, r.mesh, want, run_check=False))
+            continue
+        k = r.mesh.mesh_dim_names.index(reduce_over)
+        partial = (*want[:k], Partial(), *want[k + 1:])
+        wrapped.append(DTensor.from_local(o, r.mesh, partial, run_check=False)
+                       .redistribute(r.mesh, want))
+    return wrapped[0] if single else tuple(wrapped)
 
 
 def _is_axes(a) -> bool:

@@ -8,10 +8,12 @@ the reference layout: ``x @ wq`` maps ``d_model`` to ``n_heads * head_dim``.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch import nn
 
-from ..distributed import constrain, local_apply
+from ..distributed import constrain, current_rules, is_sharded, local_apply
 from ..kernels.flash_attention import flash_attention
 from .common import ModelConfig, apply_mrope, apply_rope
 
@@ -29,13 +31,17 @@ class Attention(nn.Module):
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """q, k and v, rotated.  On a mesh the k and v products run a column
+    slice a "model" rank and are gathered, as GSPMD partitions products over
+    the kv weights the rules replicate (plain tensors: no-ops)."""
     B, S, _ = x.shape
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    wk, wv = constrain(p.wk, (None, "heads")), constrain(p.wv, (None, "heads"))
     # the projections pinned to their weights' head axes before the head
     # split, as the head counts divide (no-ops outside the dry-run's rules)
     q = constrain(x @ p.wq, ("batch", "seq", "heads"), (B, S, H)).reshape(B, S, H, Dh)
-    k = constrain(x @ p.wk, ("batch", "seq", "kv"), (B, S, Hk)).reshape(B, S, Hk, Dh)
-    v = constrain(x @ p.wv, ("batch", "seq", "kv"), (B, S, Hk)).reshape(B, S, Hk, Dh)
+    k = constrain(x @ wk, ("batch", "seq", "kv"), (B, S, Hk)).reshape(B, S, Hk, Dh)
+    v = constrain(x @ wv, ("batch", "seq", "kv"), (B, S, Hk)).reshape(B, S, Hk, Dh)
     if cfg.mrope_sections is not None:
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -108,6 +114,15 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     return o @ p.wo, (kh, vh)
 
 
+def _decode_core(q, keys, values, *, valid: torch.Tensor) -> torch.Tensor:
+    """One query position against a cache: float32 scores over the key
+    positions where ``valid``, softmax, the weighted values (float32)."""
+    s = torch.matmul(q.float(), keys.float().transpose(-1, -2))
+    s = s / torch.sqrt(torch.tensor(float(q.shape[-1])))
+    s = s.masked_fill(~valid, -1e30)
+    return torch.matmul(torch.softmax(s, dim=-1), values.float())
+
+
 def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, pos_idx: int):
     """Single-token decode against a KV cache.
@@ -130,19 +145,25 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
     slot = pos_idx % S_ctx if cfg.window is not None else pos_idx
     cache_k[:, :, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, :, slot] = v[:, 0].to(cache_v.dtype)
-    # GQA without repeating the cache: query head h = kv * group + g; the
-    # query heads split as the cache's kv heads do (the dry-run's rules)
-    q = constrain(q, ("batch", None, "cache_heads", None), (B, 1, Hk, Dh))
-    qg = q.reshape(B, Hk, H // Hk, Dh).float()
-    s = torch.matmul(qg, cache_k.float().transpose(-1, -2))   # (B,Hk,g,S_ctx)
-    s = s / torch.sqrt(torch.tensor(float(Dh)))
     kpos = torch.arange(S_ctx, device=x.device)
     if cfg.window is not None:
         # ring buffer: valid entries are the last min(pos+1, window) writes
         valid = kpos < min(pos_idx + 1, S_ctx)
     else:
         valid = kpos <= pos_idx
-    s = s.masked_fill(~valid, -1e30)
-    o = torch.matmul(torch.softmax(s, dim=-1), cache_v.float())   # (B,Hk,g,Dh)
+    core = partial(_decode_core, valid=valid)
+    if is_sharded(q) and not current_rules().spec_for(("cache_heads",), (Hk,)):
+        # the dry-run on a mesh whose "model" axis the kv heads do not
+        # divide: the reference's form, the cache repeated to every query
+        # head, shard by shard over the batch rows and query heads
+        ax = ("batch", "heads", None, None)
+        o = local_apply(core, (q.transpose(1, 2), cache_k.repeat_interleave(H // Hk, dim=1),
+                               cache_v.repeat_interleave(H // Hk, dim=1)),
+                        (ax, ax, ax), (0,))                     # (B,H,1,Dh)
+    else:
+        # GQA without repeating the cache: query head h = kv * group + g;
+        # the query heads split as the cache's kv heads do
+        q = constrain(q, ("batch", None, "cache_heads", None), (B, 1, Hk, Dh))
+        o = core(q.reshape(B, Hk, H // Hk, Dh), cache_k, cache_v)   # (B,Hk,g,Dh)
     o = o.to(x.dtype).reshape(B, 1, H * Dh)
     return o @ p.wo, cache_k, cache_v

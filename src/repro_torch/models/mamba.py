@@ -11,6 +11,12 @@ float32, as in the reference.
 
 Decode keeps (conv window, ssm state) per layer and advances one token in
 O(d_inner · d_state).
+
+Activations are pinned with :func:`repro_torch.distributed.constrain` where
+GSPMD partitions the reference's mixer: d_inner over "model" (the
+parameters' "ffn" axis), the x projection's small output whole.  No-ops on
+plain tensors; in the dry-run they keep the products and their gradients
+split over "model" where DTensor would gather the in-projection's halves.
 """
 
 from __future__ import annotations
@@ -19,12 +25,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import constrain
 from .common import ModelConfig
 
 __all__ = ["CHUNK", "Mamba", "mamba_decode", "mamba_forward",
            "mamba_init_state"]
 
 CHUNK = 64
+INNER = ("batch", "seq", "ffn")
 
 
 class Mamba(nn.Module):
@@ -45,11 +53,11 @@ def _ssm_params(p, x_c: torch.Tensor, cfg: ModelConfig):
     """Common projections: returns dt (B,L,Di), B/C (B,L,S), A (Di,S)."""
     dt_rank = p.dt_proj.shape[0]
     S = cfg.d_state
-    xdb = x_c @ p.x_proj                                      # (B,L,dt_rank+2S)
+    xdb = constrain(x_c @ p.x_proj, ("batch", "seq", None))   # (B,L,dt_rank+2S)
     dt_r = xdb[..., :dt_rank]
     B_ssm = xdb[..., dt_rank:dt_rank + S].float()
     C_ssm = xdb[..., dt_rank + S:].float()
-    dt = F.softplus((dt_r @ p.dt_proj).float() + p.dt_bias.float())
+    dt = F.softplus(constrain(dt_r @ p.dt_proj, INNER).float() + p.dt_bias.float())
     A = -torch.exp(p.a_log.float())                           # (Di,S)
     return dt, B_ssm, C_ssm, A
 
@@ -81,8 +89,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, L, D) -> (B, L, D).  Full sequence (prefill)."""
     B, L, D = x.shape
     Di = cfg.ssm_expand * D
-    xz = x @ p.in_proj
-    x_in, z = xz[..., :Di], xz[..., Di:]
+    xz = constrain(x @ p.in_proj, INNER)
+    x_in, z = constrain(xz[..., :Di], INNER), constrain(xz[..., Di:], INNER)
     x_c, _ = _conv_causal(p, x_in)
     x_c = F.silu(x_c)
     dt, B_ssm, C_ssm, A = _ssm_params(p, x_c, cfg)
@@ -121,8 +129,8 @@ def mamba_decode(p, x: torch.Tensor, cfg: ModelConfig, state: dict):
     """x: (B, 1, D); advances one token.  Returns (out, new_state)."""
     B, _, D = x.shape
     Di = cfg.ssm_expand * D
-    xz = x @ p.in_proj
-    x_in, z = xz[..., :Di], xz[..., Di:]
+    xz = constrain(x @ p.in_proj, INNER)
+    x_in, z = constrain(xz[..., :Di], INNER), constrain(xz[..., Di:], INNER)
     x_c, new_conv = _conv_causal(p, x_in, state["conv"])
     x_c = F.silu(x_c)
     dt, B_ssm, C_ssm, A = _ssm_params(p, x_c, cfg)

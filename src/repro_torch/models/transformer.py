@@ -110,16 +110,16 @@ class Block(nn.Module):
         hn = rmsnorm(h, self.norm_mixer, cfg.norm_eps)
         if self.kind["mixer"] == "attn":
             y, _, _ = attn_decode(self.attn, hn, cfg, c["k"], c["v"], pos_idx)
-            return self._ffn(h + y)
+            return constrain(self._ffn(constrain(h + y, ACT)), ACT)
         if self.kind["mixer"] == "mamba":
             y, st = mamba_decode(self.mamba, hn, cfg, c)
             c["conv"].copy_(st["conv"])
             c["ssm"].copy_(st["ssm"])
-            return self._ffn(h + y)
+            return constrain(self._ffn(constrain(h + y, ACT)), ACT)
         y, st = rwkv_time_mix(self.rwkv, hn, cfg, state=c["att"])
         c["att"]["shift"].copy_(st["shift"])
         c["att"]["wkv"].copy_(st["wkv"])
-        return self._ffn(h + y, c["cmix"])
+        return constrain(self._ffn(constrain(h + y, ACT), c["cmix"]), ACT)
 
 
 class DecoderLM(nn.Module):

@@ -358,9 +358,9 @@ print("FLOPS", __import__("json").dumps(out))
 
 
 #: rank 0's FLOPs over the reference's per-device FLOPs on the (2, 4) mesh,
-#: at most (measured with torch 2.13: 1.1765 and 1.1429).  The rest is the
-#: kv projections, replicated over "model" by the rules in both packages,
-#: whose products and gradients DTensor places otherwise than GSPMD.
+#: at most (measured with torch 2.13: 0.9412 and 0.9286; 1.1765 and 1.1429
+#: while the kv projections, whose weights the rules replicate over "model",
+#: ran whole on every rank: GSPMD splits them by kv head, the port by column).
 MAX_2X4_RATIO = {"train": 1.20, "prefill": 1.143}
 
 
