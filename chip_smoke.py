@@ -115,9 +115,10 @@ train_rwkv and lm_prefill as measured above, each counted on a 1x1 mesh:
 roofline terms, the BottleMod step model's prediction, every step at or
 above its compute bound) and dryrun_cells (``python -m
 repro_torch.launch.dryrun`` in a child process for rwkv6-1.6b decode_32k,
-yi-9b train_4k and qwen3-moe-235b-a22b decode_32k on the 256-card fake
-mesh; each cell's FLOPs a card beside its count before the sharded-mesh
-repair), examples_torch (the six example twins, ``examples/*_torch.py``,
+yi-9b train_4k, qwen3-moe-235b-a22b decode_32k and kimi-k2-1t-a32b
+train_4k on the 256-card fake mesh; each cell's FLOPs and collective bytes
+a card beside their counts before the sharded-mesh repairs, with its
+dominant term), examples_torch (the six example twins, ``examples/*_torch.py``,
 on the card, each in its own process, each exiting with 0; four of them
 also on the CPU, one printed quantity of each held against that run);
 then the
@@ -246,16 +247,25 @@ RWKV_BF16_DECODE = 8
 #: yi-9b cut to 2 layers for the attn_bf16 check
 ATTN_BF16_LAYERS = 2
 #: the dry-run cells run on the card's host, each in its own process; the
-#: MoE cell counts its expert dispatch shard by shard
+#: MoE cells count their expert dispatch shard by shard; kimi-k2's training
+#: step was collective-bound before the collective-byte repair
 DRYRUN_CELLS = (("rwkv6-1.6b", "decode_32k"), ("yi-9b", "train_4k"),
-                ("qwen3-moe-235b-a22b", "decode_32k"))
+                ("qwen3-moe-235b-a22b", "decode_32k"), ("kimi-k2-1t-a32b", "train_4k"))
 #: each cell's FLOPs a card before the sharded-mesh repair of the decode
 #: step, the kv projections and the MoE forms (the same dry-run before that
 #: repair, torch 2.13 on a CPU; yi-9b's train count torch 2.11's on the
 #: card's host)
 DRYRUN_FLOPS_BEFORE = {"rwkv6-1.6b_decode_32k": 1_746_403_328.0,
                        "yi-9b_train_4k": 412_574_558_453_760.0,
-                       "qwen3-moe-235b-a22b_decode_32k": 1_105_351_671_808.0}
+                       "qwen3-moe-235b-a22b_decode_32k": 1_105_351_671_808.0,
+                       "kimi-k2-1t-a32b_train_4k": 3_926_321_166_024_704.0}
+#: each cell's collective bytes a card before the repair of the MoE
+#: dispatch and combine and the kv products on a mesh (the same dry-run
+#: before that repair, torch 2.11 on the card's host)
+DRYRUN_COLLECTIVE_BEFORE = {"rwkv6-1.6b_decode_32k": 13_982_208.0,
+                            "yi-9b_train_4k": 148_254_920_648.0,
+                            "qwen3-moe-235b-a22b_decode_32k": 2_019_188_608.0,
+                            "kimi-k2-1t-a32b_train_4k": 5_204_710_296_256.0}
 #: the Fig. 7 pack's shard count on the CPU: not a divisor of B = 600
 CPU_SHARDS = 7
 #: the example twins run on the card, each in its own process
@@ -3306,10 +3316,12 @@ def run_children(cmds: list[list[str]], timeout: float) -> list[tuple]:
 def phase_dryrun_cells():
     """``python -m repro_torch.launch.dryrun`` in a child process for each
     of DRYRUN_CELLS on the 256-card fake mesh (the reference's integration
-    cell, rwkv6-1.6b decode, yi-9b's training step and qwen3-moe's decode),
-    the children started together: status ok, 256 chips, FLOPs counted,
-    the decodes memory-bound, the step model's prediction from each record
-    positive."""
+    cell, rwkv6-1.6b decode, yi-9b's training step, qwen3-moe's decode and
+    kimi-k2's training step), the children started together: status ok,
+    256 chips, FLOPs counted, the decodes memory-bound, the step model's
+    prediction from each record positive.  Each cell's FLOPs and collective
+    bytes are printed beside their counts before the sharded-mesh repairs,
+    with its dominant term (kimi-k2's is not gated)."""
     import shutil
 
     from repro_torch.perfmodel.stepmodel import from_dryrun_record, predict
@@ -3334,6 +3346,8 @@ def phase_dryrun_cells():
         check(p.step_time_s > 0, f"{arch} {shape}: step time {p.step_time_s}")
         cells[f"{arch}_{shape}"] = {
             **rec["per_device"], "flops_before_repair": DRYRUN_FLOPS_BEFORE[f"{arch}_{shape}"],
+            "collective_bytes_before_repair": DRYRUN_COLLECTIVE_BEFORE[f"{arch}_{shape}"],
+            "collective_by_op": rec["collectives"]["collective_by_op"],
             "dominant": rr["dominant"], "compute_s": rr["compute_s"],
             "memory_s": rr["memory_s"], "collective_s": rr["collective_s"],
             "useful_flops_ratio": rr["useful_flops_ratio"], "n_ops": rec["collectives"]["n_ops"],

@@ -34,9 +34,9 @@ from typing import Any
 
 import torch
 
-__all__ = ["DEFAULT_RULES", "AxisRules", "axis_index", "axis_rules", "constrain",
-           "current_rules", "is_sharded", "local_apply", "placements_for",
-           "tree_shardings"]
+__all__ = ["DEFAULT_RULES", "AxisRules", "axis_index", "axis_rules", "block_index",
+           "constrain", "current_rules", "exchange", "gather_blocks", "is_sharded",
+           "local_apply", "mesh_axes", "placements_for", "tree_shardings"]
 
 # default rule table: logical name -> tuple of candidate mesh axes
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
@@ -209,13 +209,20 @@ def local_apply(fn, args: tuple, axes: tuple, out_like: tuple,
     each batch row and head).  Under active rules, with a ``DTensor`` among
     ``args``, each argument is redistributed to the placements of its
     logical ``axes``, ``fn`` runs on the local shards, and output i takes
-    the placements of argument ``out_like[i]``: no communication inside
-    ``fn``, as GSPMD partitions the reference's einsums.  DTensor's own
-    propagation would reshape across sharded dimensions and gather or
-    reduce whole score and decay tensors instead.  With ``reduce_over`` (a
-    mesh axis that argument ``out_like[i]`` is replicated over), each rank's
-    output is its partial sum, all-reduced over that axis: the reference's
-    ``psum`` at the end of a ``shard_map`` body.  Otherwise ``fn(*args)``.
+    the placements of argument ``out_like[i]``, or ``out_like[i]`` itself
+    where that is a tuple of placements: no communication inside ``fn``
+    beyond what it issues itself (:func:`exchange`), as GSPMD partitions the
+    reference's einsums.  DTensor's own propagation would reshape across
+    sharded dimensions and gather or reduce whole score and decay tensors
+    instead.  With ``reduce_over`` (a mesh axis that output i is replicated
+    over), each rank's output is its partial sum, all-reduced over that
+    axis: the reference's ``psum`` at the end of a ``shard_map`` body.
+    Otherwise ``fn(*args)``.
+
+    The gradient of an argument replicated over a mesh axis along which the
+    ranks compute different things (some argument or output is split or
+    summed over it) is each rank's partial sum, as GSPMD transposes a
+    replicated operand of a partitioned product.
     """
     r = current_rules()
     if r is None:
@@ -230,19 +237,75 @@ def local_apply(fn, args: tuple, axes: tuple, out_like: tuple,
             a = DTensor.from_local(a, r.mesh, [Replicate()] * len(r.mesh.shape),
                                    run_check=False)
         placed.append(a.redistribute(r.mesh, r.placements_for(ax, tuple(a.shape))))
-    outs = fn(*(a.to_local() for a in placed))
+    wants = [placed[i].placements if isinstance(i, int) else tuple(i) for i in out_like]
+    k = None if reduce_over is None else r.mesh.mesh_dim_names.index(reduce_over)
+    varied = {d for pl in [a.placements for a in placed] + wants
+              for d, p in enumerate(pl) if not p.is_replicate()} | ({k} - {None})
+    outs = fn(*(a.to_local(grad_placements=[Partial() if d in varied and p.is_replicate()
+                                            else p for d, p in enumerate(a.placements)])
+                for a in placed))
     single = isinstance(outs, torch.Tensor)
     wrapped = []
-    for o, i in zip((outs,) if single else outs, out_like, strict=True):
-        want = placed[i].placements
-        if reduce_over is None:
+    for o, want in zip((outs,) if single else outs, wants, strict=True):
+        if k is None:
             wrapped.append(DTensor.from_local(o, r.mesh, want, run_check=False))
             continue
-        k = r.mesh.mesh_dim_names.index(reduce_over)
         partial = (*want[:k], Partial(), *want[k + 1:])
         wrapped.append(DTensor.from_local(o, r.mesh, partial, run_check=False)
                        .redistribute(r.mesh, want))
     return wrapped[0] if single else tuple(wrapped)
+
+
+def mesh_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (``None``, a name or a tuple of
+    names), major to minor."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _group(name: str):
+    mesh = current_rules().mesh
+    return mesh, mesh.mesh_dim_names.index(name)
+
+
+def exchange(send: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+    """All-to-all over the mesh axes ``axes`` (major to minor), from inside
+    a :func:`local_apply` body: ``send``'s leading dimension holds one block
+    for each rank of the axes (in mesh order); block i of the result is the
+    one rank i sent here.  One all-to-all a mesh axis, each of the whole
+    buffer, differentiable (the transpose is the reverse exchange)."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+
+    mesh = current_rules().mesh
+    sizes = [mesh.size(_group(a)[1]) for a in axes]
+    out = send.reshape(*sizes, *send.shape[1:])
+    for i, a in enumerate(axes):
+        moved = all_to_all_single_autograd(out.movedim(i, 0).contiguous(), None, None,
+                                           _group(a))
+        out = moved.movedim(0, i)
+    return out.reshape(send.shape)
+
+
+def gather_blocks(t: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
+    """``t`` of every rank of the mesh axes ``axes`` concatenated along
+    dimension 0 in mesh order, from inside a :func:`local_apply` body (an
+    all-gather; for indices, which carry no gradient)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = current_rules().mesh
+    placements = [Shard(0) if a in axes else Replicate() for a in mesh.mesh_dim_names]
+    return DTensor.from_local(t, mesh, placements, run_check=False).full_tensor()
+
+
+def block_index(axes: tuple[str, ...]) -> int:
+    """This rank's index among the ranks of the mesh axes ``axes`` (mesh
+    order, major to minor)."""
+    mesh = current_rules().mesh
+    i = 0
+    for a in axes:
+        i = i * mesh.size(_group(a)[1]) + mesh.get_local_rank(a)
+    return i
 
 
 def _is_axes(a) -> bool:

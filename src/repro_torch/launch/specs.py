@@ -18,7 +18,8 @@ each with the axes of its parameter's stacked leaf less the ``layers`` axis.
 Parameters are stored as the rules place them, "embed" over "data" (FSDP,
 ZeRO-3), and each step first gathers them to their compute placement, the
 same rules without that mapping (:func:`_unshard`): the all-gathers GSPMD
-inserts for the reference.  The training step's gradients come back as
+inserts for the reference.  The expert stacks stay as stored until their
+MoE form places them.  The training step's gradients come back as
 partial sums over the data axis, and the optimizer's update of the stored
 (sharded) parameters reduce-scatters them.  Left to itself, DTensor would
 gather a decode step's whole batch instead and reduce partial products.
@@ -138,7 +139,10 @@ def _micro_batches(batch: dict, n: int) -> list[dict]:
 def _unshard(params: dict, axes: dict, whole_table: bool = False) -> dict:
     """Each ``DTensor`` parameter redistributed from its stored placement to
     its compute placement (the active rules with "embed" unmapped); plain
-    tensors as they are.  ``whole_table`` also gathers the embedding table
+    tensors, and the expert stacks, as they are: each MoE form places those
+    itself (the global form keeps D split over "data", as GSPMD keeps the
+    reference's, the expert-parallel forms gather them in their local
+    body).  ``whole_table`` also gathers the embedding table
     over the vocabulary: DTensor cannot take the gradient of a lookup in a
     vocab-sharded table (its masked partial sum meets a plain one)."""
     r = current_rules()
@@ -151,7 +155,7 @@ def _unshard(params: dict, axes: dict, whole_table: bool = False) -> dict:
     def rec(t, a, path):
         if isinstance(t, dict):
             return {k: rec(t[k], a[k], path + (k,)) for k in t}
-        if not isinstance(t, DTensor):
+        if not isinstance(t, DTensor) or "experts" in a:
             return t
         if whole_table and path == ("embed",):
             a = (None,) * t.dim()

@@ -13,7 +13,7 @@ from functools import partial
 import torch
 from torch import nn
 
-from ..distributed import constrain, current_rules, is_sharded, local_apply
+from ..distributed import axis_index, constrain, current_rules, is_sharded, local_apply
 from ..kernels.flash_attention import flash_attention
 from .common import ModelConfig, apply_mrope, apply_rope
 
@@ -31,35 +31,86 @@ class Attention(nn.Module):
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """q, k and v, rotated.  On a mesh the k and v products run a column
-    slice a "model" rank and are gathered, as GSPMD partitions products over
-    the kv weights the rules replicate (plain tensors: no-ops)."""
+    """q, k and v, rotated (on a mesh: :func:`_project_qkv_sharded`)."""
+    if is_sharded(x):
+        return _project_qkv_sharded(p, x, cfg, positions)
     B, S, _ = x.shape
     H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    wk, wv = constrain(p.wk, (None, "heads")), constrain(p.wv, (None, "heads"))
-    # the projections pinned to their weights' head axes before the head
-    # split, as the head counts divide (no-ops outside the dry-run's rules)
-    q = constrain(x @ p.wq, ("batch", "seq", "heads"), (B, S, H)).reshape(B, S, H, Dh)
-    k = constrain(x @ wk, ("batch", "seq", "kv"), (B, S, Hk)).reshape(B, S, Hk, Dh)
-    v = constrain(x @ wv, ("batch", "seq", "kv"), (B, S, Hk)).reshape(B, S, Hk, Dh)
+    q = (x @ p.wq).reshape(B, S, H, Dh)
+    k = (x @ p.wk).reshape(B, S, Hk, Dh)
+    v = (x @ p.wv).reshape(B, S, Hk, Dh)
+    return _rotate(q, positions, cfg), _rotate(k, positions, cfg), v
+
+
+def _rotate(t: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.mrope_sections is not None:
-        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    else:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        return apply_mrope(t, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(t, positions, cfg.rope_theta)
+
+
+def _project_qkv_sharded(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """The dry-run's q (B, S, H, Dh) split over the query heads as the
+    rules split them.  Where they split over "model", k and v come in the
+    same shape and split: each rank projects the kv head(s) its query heads
+    read and repeats them to its query heads, as GSPMD gives each rank of
+    the reference's program the kv head its query heads use (on a "model"
+    axis wider than the kv heads, ranks share one), with no gather.  Where
+    they do not, each rank projects a column slice of the kv heads, gathered
+    into (B, S, Hk, Dh)."""
+    B, S, _ = x.shape
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    # pinned to the heads axis before the head split, as the head count
+    # divides
+    q = constrain(x @ p.wq, ("batch", "seq", "heads"), (B, S, H)).reshape(B, S, H, Dh)
+    q = _rotate(q, positions, cfg)
+    if not _per_query_head(cfg):
+        wk, wv = constrain(p.wk, (None, "heads")), constrain(p.wv, (None, "heads"))
+        k = constrain(x @ wk, ("batch", "seq", "kv"), (B, S, Hk)).reshape(B, S, Hk, Dh)
+        v = constrain(x @ wv, ("batch", "seq", "kv"), (B, S, Hk)).reshape(B, S, Hk, Dh)
+        return q, _rotate(k, positions, cfg), v
+    pos_axes = ("batch", "seq") if positions.dim() == 2 else (None, "batch", "seq")
+    qax = ("batch", "seq", "heads", None)
+    k, v = local_apply(partial(_kv_per_query_head, cfg=cfg),
+                       (q, x, p.wk, p.wv, positions),
+                       (qax, ("batch", "seq", None), (None, None), (None, None), pos_axes),
+                       (0, 0))
     return q, k, v
+
+
+def _per_query_head(cfg: ModelConfig) -> bool:
+    """Whether a mesh step's k and v come per query head: the rules split
+    the query heads."""
+    return bool(current_rules().spec_for(("heads",), (cfg.n_heads,)))
+
+
+def _kv_per_query_head(q, x, wk, wv, positions, *, cfg: ModelConfig):
+    """Local body: k and v (B, S, H_loc, Dh) for this rank's query heads
+    (``q``'s ``H_loc`` local heads, from head ``H_loc`` x its "model"
+    rank), from the kv heads they read."""
+    H_loc, Dh = q.shape[2], q.shape[3]
+    group = cfg.n_heads // cfg.n_kv_heads
+    h0 = axis_index("model") * H_loc
+    j0, j1 = h0 // group, (h0 + H_loc - 1) // group + 1
+    B, S, _ = x.shape
+    k = (x @ wk[:, j0 * Dh:j1 * Dh]).reshape(B, S, j1 - j0, Dh)
+    v = (x @ wv[:, j0 * Dh:j1 * Dh]).reshape(B, S, j1 - j0, Dh)
+    idx = torch.arange(h0, h0 + H_loc, device=x.device) // group - j0
+    return _rotate(k, positions, cfg)[:, :, idx], v[:, :, idx]
 
 
 def _dense_attention(q, k, v, *, causal: bool, window: int | None,
                      f32_scores: bool) -> torch.Tensor:
-    """The reference's XLA attention path: q (B,H,S,D), k/v (B,Hkv,S,D) ->
-    (B,H,S,D) in q's dtype.  Scores and softmax are float32 with
-    ``f32_scores``, else in q's dtype (the "attn_bf16" variant: it halves the
-    score chain's traffic); masked scores are -1e30, or -30000 in bf16."""
-    group = q.shape[1] // k.shape[1]
-    kr = k.repeat_interleave(group, dim=1)
-    vr = v.repeat_interleave(group, dim=1)
+    """The reference's XLA attention path: q (B,H,S,D), k/v (B,Hkv,S,D),
+    or (B,H,S,D) per query head on a mesh -> (B,H,S,D) in q's dtype.
+    Scores and softmax are float32 with ``f32_scores``, else in q's dtype
+    (the "attn_bf16" variant: it halves the score chain's traffic); masked
+    scores are -1e30, or -30000 in bf16."""
+    if is_sharded(q) and k.shape[1] == q.shape[1]:      # per query head already
+        kr, vr = k, v
+    else:
+        group = q.shape[1] // k.shape[1]
+        kr = k.repeat_interleave(group, dim=1)
+        vr = v.repeat_interleave(group, dim=1)
     ax = ("batch", "heads", "seq", None)
     return local_apply(lambda *a: _attention_core(*a, causal=causal, window=window,
                                                   f32_scores=f32_scores),
@@ -142,6 +193,9 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
     if cfg.mrope_sections is not None:
         positions = positions[None].expand(3, B, 1)
     q, k, v = _project_qkv(p, x, cfg, positions)
+    if is_sharded(q) and _per_query_head(cfg):
+        # per query head: each kv head's first copy goes to the cache
+        k, v = k[:, :, ::H // Hk], v[:, :, ::H // Hk]
     slot = pos_idx % S_ctx if cfg.window is not None else pos_idx
     cache_k[:, :, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, :, slot] = v[:, 0].to(cache_v.dtype)
@@ -162,8 +216,10 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
                         (ax, ax, ax), (0,))                     # (B,H,1,Dh)
     else:
         # GQA without repeating the cache: query head h = kv * group + g;
-        # the query heads split as the cache's kv heads do
+        # the query heads split as the cache's kv heads do, shard by shard
         q = constrain(q, ("batch", None, "cache_heads", None), (B, 1, Hk, Dh))
-        o = core(q.reshape(B, Hk, H // Hk, Dh), cache_k, cache_v)   # (B,Hk,g,Dh)
+        ax = ("batch", "cache_heads", None, None)
+        o = local_apply(core, (q.reshape(B, Hk, H // Hk, Dh), cache_k, cache_v),
+                        (ax, ax, ax), (0,))                     # (B,Hk,g,Dh)
     o = o.to(x.dtype).reshape(B, 1, H * Dh)
     return o @ p.wo, cache_k, cache_v

@@ -27,27 +27,31 @@ does: each "model" rank keeps its ``E / M`` experts, computes a partial
 output on its batch rows and one all-reduce over "model" sums them
 (:func:`~repro_torch.distributed.local_apply` with ``reduce_over``).
 
-The global form pins its activations with ``constrain(...)`` (the
-dispatched buffer, the expert outputs, the combined output): a no-op on
-plain tensors, a redistribution of ``DTensor``s in the dry-run, where the
-buffer's slots split over the data axes and its experts over "model", so no
-rank repeats another's expert products.  The expert products are plain
-batched matmuls and the scatters ``index_add_``/``scatter_add_``, as the
-reference computes them outside any Pallas kernel.  DTensor has no
-strategy for those scatters, so on a mesh they run through ``local_apply``:
-the global form's dispatch on replicated tokens, the double scatter on each
-rank's batch rows.
+The global form on a mesh (the dry-run's) partitions as GSPMD partitions
+the reference's (:func:`_global_on_mesh`): each "model" rank keeps its
+experts and each rank of the data axes a column block of D, the tokens
+reach that split by one all-to-all and leave it by another, the gate and
+up products sum their column blocks by an all-reduce, so no rank repeats
+another's expert products and no rank gathers whole expert outputs.  The
+expert products are plain batched matmuls and the scatters
+``index_add_``/``scatter_add_``, as the reference computes them outside
+any Pallas kernel.  DTensor has no strategy for those scatters, so on a
+mesh they run through ``local_apply``: the global form's dispatch and
+combine on each rank's column block, the double scatter on each rank's
+batch rows.
 """
 
 from __future__ import annotations
 
+import math
 from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed import axis_index, constrain, current_rules, is_sharded, local_apply
+from ..distributed import (axis_index, block_index, constrain, current_rules, exchange,
+                           gather_blocks, is_sharded, local_apply, mesh_axes)
 from .common import ModelConfig
 
 __all__ = ["MoE", "moe_forward", "moe_forward_global", "moe_forward_local",
@@ -88,10 +92,14 @@ def _capacity(tokens: int, cfg: ModelConfig) -> int:
                             / cfg.n_experts)))
 
 
-def _swiglu_experts(he: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
-    """``he (..., E, C, D)`` through each expert's SwiGLU -> ``(..., E, C, D)``."""
+def _swiglu_experts(he: torch.Tensor, w_gate, w_up, w_down,
+                    hidden: tuple | None = None) -> torch.Tensor:
+    """``he (..., E, C, D)`` through each expert's SwiGLU -> ``(..., E, C, D)``;
+    on a mesh the gate and up products are pinned to ``hidden``."""
     g = torch.einsum("...ecd,edf->...ecf", he, w_gate)
     u = torch.einsum("...ecd,edf->...ecf", he, w_up)
+    if hidden is not None:
+        g, u = constrain(g, hidden), constrain(u, hidden)
     return torch.einsum("...ecf,efd->...ecd", F.silu(g) * u, w_down)
 
 
@@ -110,46 +118,137 @@ def _dispatch(xt: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
 def moe_forward_global(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D); ``p`` has ``router``, ``w_gate``, ``w_up``
     and ``w_down`` (:class:`MoE`)."""
+    if is_sharded(x):
+        return _global_on_mesh(p, x, cfg)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     N = B * S
     xt = x.reshape(N, D)
     gates, experts = _route(xt, p.router, K)                  # (N, K)
     capacity = _capacity(N, cfg)
+    slot, keep = _slots(experts, E, capacity)
 
-    # position of token-slot (n, k) within its expert = number of earlier
-    # slots routed to the same expert (exclusive one-hot cumsum)
+    # dispatch into a dense (E*capacity, D) buffer; a dropped copy adds 0
+    he = _dispatch(xt, slot, keep, E * capacity).reshape(E, capacity, D)
+    out_e = _swiglu_experts(he, p.w_gate, p.w_up, p.w_down)
+
+    # combine: gather the slots back, weight by the gates, sum over k
+    tok_out = out_e.reshape(E * capacity, D)[slot]             # (N*K, D)
+    w = (gates.reshape(-1) * keep.to(gates.dtype))[:, None].to(tok_out.dtype)
+    return (tok_out * w).reshape(N, K, D).sum(1).reshape(B, S, D)
+
+
+def _slots(experts: torch.Tensor, E: int, capacity: int):
+    """The slot of each token copy (``experts`` (N, K), token-major) in the
+    (E·capacity) buffer, and whether it is kept: its position within its
+    expert is the number of earlier copies routed there (exclusive one-hot
+    cumsum); a dropped copy points at its expert's slot 0."""
     flat_expert = experts.reshape(-1)                          # (N*K,)
     onehot = F.one_hot(flat_expert, E)                         # (N*K, E)
     pos_in_expert = torch.cumsum(onehot, 0) - onehot
     pos = torch.gather(pos_in_expert, 1, flat_expert[:, None])[:, 0]
     keep = pos < capacity
-    slot = flat_expert * capacity + torch.where(keep, pos, 0)
+    return flat_expert * capacity + torch.where(keep, pos, 0), keep
 
-    # dispatch into a dense (E*capacity, D) buffer; a dropped copy adds 0.
-    # The slots index every token, so under DTensor the scatter runs on
-    # replicated tokens, one rank's whole buffer (DTensor has no strategy
-    # for index_add_); the constraint below then keeps each rank's experts
-    # and its share of their slots, a local slice, so that no two ranks
-    # compute the same product.  Where the capacity does not split over the
-    # data axes, D does, as GSPMD splits the reference's products: partial
-    # sums into the SwiGLU, and the down product's output split over D.
-    # The expert outputs are gathered back over the data axes to combine
-    buf = local_apply(partial(_dispatch, n_slots=E * capacity),
-                      (xt, slot, keep), ((None, None), (None,), (None,)), (0,))
-    slots = ("experts", "batch", "embed")
-    he = constrain(buf.reshape(E, capacity, D), slots)
-    w_down = p.w_down
-    if is_sharded(he) and len(current_rules().spec_for(slots, (E, capacity, D))) == 3:
-        w_down = constrain(w_down, ("experts", None, "embed"))
-    out_e = constrain(_swiglu_experts(he, p.w_gate, p.w_up, w_down),
-                      ("experts", None, "act_embed"))
 
-    # combine: gather the slots back, weight by the gates, sum over k
-    tok_out = out_e.reshape(E * capacity, D)[slot]             # (N*K, D)
-    w = (gates.reshape(-1) * keep.to(gates.dtype))[:, None].to(tok_out.dtype)
-    return constrain((tok_out * w).reshape(N, K, D).sum(1).reshape(B, S, D),
-                     ("batch", "seq", "act_embed"))
+def _global_on_mesh(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The global form on a mesh, as GSPMD partitions the reference's: each
+    "model" rank keeps its experts, each rank of the data axes a column
+    block of D.  The tokens go from their row split to that column split by
+    one all-to-all over the data axes, each rank scatters every token's
+    copies into its experts' slots (the slots of every token: the routing is
+    gathered as indices), the gate and up products sum over the data axes'
+    column blocks (an all-reduce), the down product's output keeps the
+    column split, and the combine is the dispatch reversed: the copies' rows
+    gathered locally, one all-to-all back to the row split, the gates
+    applied, and one all-reduce over "model" of the partial (B, S, D).
+    Where D does not split as the tokens do, every data rank takes every
+    token."""
+    r = current_rules()
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    N = B * S
+    capacity = _capacity(N, cfg)
+    rows = _batch_axes(r, N)
+    if _batch_axes(r, D) != rows:
+        rows = ()
+    tok, cols = (("batch", None), "batch") if rows else ((None, None), None)
+    split = r.spec_for(("experts",), (E,))
+    E_loc = E // _axis_size(r, "model") if split else E
+    xt = x.reshape(N, D)
+    whole = r.placements_for((), ())
+    slot, keep, w = local_apply(partial(_route_slots, cfg=cfg, capacity=capacity, rows=rows),
+                                (xt, p.router), (tok, (None, None)), (whole, whole, 0))
+    he_axes = ("experts", None, cols)
+    n = math.prod(_axis_size(r, a) for a in rows)
+    he = local_apply(partial(_dispatch_columns, n=n, capacity=capacity, E_loc=E_loc,
+                             rows=rows, split=bool(split)),
+                     (xt, slot, keep), (tok, (None,), (None,)),
+                     (r.placements_for(he_axes, (E, capacity, D)),))
+    out_e = constrain(_swiglu_experts(he, constrain(p.w_gate, ("experts", cols, None)),
+                                      constrain(p.w_up, ("experts", cols, None)),
+                                      constrain(p.w_down, ("experts", None, cols)),
+                                      hidden=("experts", None, None)), he_axes)
+    out = local_apply(partial(_combine_rows, n=n, K=K, capacity=capacity, E_loc=E_loc,
+                              rows=rows, split=bool(split)),
+                      (out_e, slot, w), (he_axes, (None,), ("batch",) if rows else (None,)),
+                      (r.placements_for(tok, (N, D)),),
+                      reduce_over="model" if split else None)
+    return constrain(out.reshape(B, S, D), ("batch", "seq", "act_embed"))
+
+
+def _axis_size(r, name: str) -> int:
+    return dict(zip(r.mesh.mesh_dim_names, r.mesh.shape))[name]
+
+
+def _batch_axes(r, size: int) -> tuple[str, ...]:
+    """The mesh axes "batch" splits a dimension of ``size`` over."""
+    spec = r.spec_for(("batch",), (size,))
+    return mesh_axes(spec[0]) if spec else ()
+
+
+def _route_slots(xt, router, *, cfg: ModelConfig, capacity: int, rows: tuple):
+    """Local body: route this rank's tokens, gather every token's experts
+    over ``rows`` (indices only) and return the slot and kept flag of every
+    token copy, with this rank's copies' gate weights (zero where dropped)."""
+    gates, experts = _route(xt, router, cfg.top_k)
+    slot, keep = _slots(gather_blocks(experts, rows), cfg.n_experts, capacity)
+    n = gates.numel()
+    mine = keep[block_index(rows) * n:][:n]
+    return slot, keep, gates.reshape(-1) * mine.to(gates.dtype)
+
+
+def _local_slots(slot, *, capacity: int, E_loc: int, split: bool):
+    """Which copies this "model" rank's experts take, and their slot in its
+    (E_loc·capacity) block."""
+    lo = axis_index("model") * E_loc * capacity if split else 0
+    mine = (slot >= lo) & (slot < lo + E_loc * capacity)
+    return mine, torch.where(mine, slot - lo, 0)
+
+
+def _dispatch_columns(xt, slot, keep, *, n: int, capacity: int, E_loc: int,
+                      rows: tuple, split: bool):
+    """Local body: this rank's rows to every token's column block (one
+    all-to-all over ``rows``, ``n`` ranks), their kept copies scattered
+    into this rank's experts' slots -> (E_loc, capacity, D / n)."""
+    N_loc, D = xt.shape
+    xd = exchange(xt.reshape(N_loc, n, D // n).movedim(1, 0), rows).reshape(-1, D // n)
+    mine, local = _local_slots(slot, capacity=capacity, E_loc=E_loc, split=split)
+    buf = _dispatch(xd, local, keep & mine, E_loc * capacity)
+    return buf.reshape(E_loc, capacity, D // n)
+
+
+def _combine_rows(out_e, slot, w, *, n: int, K: int, capacity: int, E_loc: int,
+                  rows: tuple, split: bool):
+    """Local body: every token copy's row of this rank's experts' outputs
+    (its column block), back to the row split (one all-to-all over
+    ``rows``, ``n`` ranks), weighted by this rank's gates and summed over
+    the k copies: this rank's experts' share of its rows' output."""
+    mine, local = _local_slots(slot, capacity=capacity, E_loc=E_loc, split=split)
+    D_loc = out_e.shape[-1]
+    tok = out_e.reshape(-1, D_loc)[local] * mine[:, None].to(out_e.dtype)   # (N*K, D_loc)
+    tok = exchange(tok.reshape(n, -1, D_loc), rows).movedim(0, 1).reshape(-1, n * D_loc)
+    return (tok * w[:, None].to(tok.dtype)).reshape(-1, K, n * D_loc).sum(1)
 
 
 def _double_scatter_rows(x, gates, slot, w_gate, w_up, w_down, *,
@@ -236,7 +335,7 @@ def _row_local_forward(p, x: torch.Tensor, cfg: ModelConfig,
     r = current_rules()
     rows, router = ("batch", None, None), (None, None)
     if r.spec_for(("experts",), (E,)) == ("model",):
-        E_loc = E // dict(zip(r.mesh.mesh_dim_names, r.mesh.shape))["model"]
+        E_loc = E // _axis_size(r, "model")
         fn = partial(_bucketed_expert_math, cfg=cfg, e_lo=axis_index("model") * E_loc,
                      E_loc=E_loc, positions=positions)
         experts = ("experts", None, None)
