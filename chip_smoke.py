@@ -92,7 +92,20 @@ GQA group 4, 4 MoE layers; the same checks), lm_prefill_kimi and
 lm_serve_kimi (kimi-k2-1t-a32b, 1 of 61 layers: one flash call at GQA
 group 8, 384 experts; the same checks, the float32 one on the smoke
 config: one full-width layer in float32 does not fit beside its working
-set), then training:
+set), then the five attention families, each a pair lm_prefill_<tag> and
+lm_serve_<tag>: deepseek (deepseek-7b, 30 layers, MHA at head_dim 128),
+danube (h2o-danube-3-4b, 24 layers, head_dim 120, its prefill at S = 8192
+where the window of 4,096 masks keys; a second float32 check at 1 layer
+over 4,160 tokens, the prefill's windowed kernel against cached decode
+steps that wrap the ring buffer), starcoder2 (starcoder2-15b, 40 layers,
+GQA group 12; float32 check at 8 layers), musicgen (musicgen-medium, 48
+layers, seeded frame embeddings in, 4 codebooks' logits out; served by a
+loop of cached decode steps here, 8 requests of 32 prompt frames and 16
+teacher-forced steps, as the launcher refuses audio) and qwen2vl
+(qwen2-vl-72b, 16 of 80 layers, M-RoPE positions of an image prompt;
+float32 check at 4 layers on text positions), each prefill at B = 2 and
+S = 4096 with every flash call on the tensor cores and held against the
+plain version; then training:
 train_grad_kernels (the flash and wkv6 autograd wrappers on seeded card
 tensors: forward bit for bit the kernel's, every gradient against the
 plain version's autograd gradient), train_100m
@@ -128,8 +141,8 @@ route on the same inputs, and ptxas registers and spills; for the crossing
 the launch floor).  The launch counts are
 set to 0 just before each path is driven and read just after it; the
 ppoly and flash rows carry each path's counts in ``launches_by_path``;
-the flash row also times the kernel at the MoE, Jamba and kimi-k2
-prefill shapes (``by_shape``).
+the flash row also times the kernel at the MoE, Jamba, kimi-k2 and the
+five attention families' prefill shapes (``by_shape``).
 
 Imports nothing of JAX or of the reference package.  Exits with code 2 and
 prints no result when no CUDA device is present or when the port's sources
@@ -217,6 +230,23 @@ KIMI_ARCH, KIMI_LAYERS = "kimi-k2-1t-a32b", 1
 #: (tests/test_arch_smoke.py)
 XCHECK_SHAPE = (2, 32)
 XCHECK_TOL = 2e-2
+#: the five attention families at full width: (arch, bf16 depth, tag, the
+#: float32 check's depth where the full depth's float32 weights would pass
+#: about 30 GB); qwen2-vl's 16 of 80 layers take 28 GB and its embedding
+#: and unembedding 5 GB
+FAMILY_RUNS = (("deepseek-7b", 30, "deepseek", None),
+               ("h2o-danube-3-4b", 24, "danube", None),
+               ("starcoder2-15b", 40, "starcoder2", 8),
+               ("musicgen-medium", 48, "musicgen", None),
+               ("qwen2-vl-72b", 16, "qwen2vl", 4))
+#: h2o-danube's prefill length: its window of 4,096 masks keys only past it
+DANUBE_SEQ = 8_192
+#: h2o-danube's float32 ring-buffer check: layers and tokens, past the window
+WRAP_LAYERS, WRAP_SEQ = 1, 4_160
+#: qwen2-vl's image prompt: text tokens, then a patch grid (rows, columns)
+MROPE_TEXT, MROPE_GRID = 64, (64, 48)
+#: musicgen's serving loop: requests, prompt frames, teacher-forced steps
+AUDIO_REQUESTS, AUDIO_PROMPT, AUDIO_STEPS = 8, 32, 16
 GRAD_CASES = (("caps", ("task1.cpu", "dl1.link"), (1.31, 0.73), False),
               ("ramped", ("task1.cpu", "task2.cpu"), (1.37, 0.81), True))
 #: training: the launcher's defaults (dense-100m, float32, B = 8, S = 256)
@@ -939,13 +969,17 @@ def trace_decode(cfg, model, batch: int, context: int, steps: int = 3) -> dict:
 
     with torch.inference_mode():
         cache = T.init_cache(cfg, batch, context)
-        tok = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
-        T.decode_step(model, cfg, cache, {"tokens": tok}, 0)
+        if cfg.frontend == "audio":
+            step_in = {"embeddings": torch.zeros((batch, 1, cfg.d_model),
+                                                 dtype=cfg.torch_dtype, device="cuda")}
+        else:
+            step_in = {"tokens": torch.zeros((batch, 1), dtype=torch.long, device="cuda")}
+        T.decode_step(model, cfg, cache, step_in, 0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for t in range(1, steps + 1):
-                T.decode_step(model, cfg, cache, {"tokens": tok}, t)
+                T.decode_step(model, cfg, cache, step_in, t)
             torch.cuda.synchronize()
             host = (time.perf_counter() - t0) / steps
     # device-side events (kernels, copies, sets) of the one stream; none if
@@ -2368,12 +2402,58 @@ def cut_config(arch: str, n_layers: int):
             {"n_layers": [full.n_layers, n_layers]})
 
 
-def phase_lm_prefill_cut(phase: str, arch: str, n_layers: int):
+def mrope_positions(B: int, S: int, text: int, grid: tuple[int, int], device=None):
+    """(3, B, S) M-RoPE positions of an image prompt as Qwen2-VL numbers it:
+    ``text`` text tokens (t = h = w = i), a gh x gw grid of patches (t =
+    text, h = text + row, w = text + column), then text again from text +
+    max(gh, gw) on, the three streams equal."""
+    import torch
+
+    gh, gw = grid
+    n = gh * gw
+    patch = torch.arange(n)
+    head = torch.arange(text)
+    tail = text + max(gh, gw) + torch.arange(S - text - n)
+    t = torch.cat([head, torch.full((n,), text), tail])
+    h = torch.cat([head, text + patch // gw, tail])
+    w = torch.cat([head, text + patch % gw, tail])
+    return torch.stack([t, h, w])[:, None].expand(3, B, S).to(device)
+
+
+def step_inputs(cfg, B: int, S: int, gen) -> tuple:
+    """Seeded (B, S) tokens, or for an audio model (B, S, D) frame
+    embeddings (0.1 x normal, as tests/test_torch_lm.py makes them) in
+    ``cfg``'s dtype, on the card, and the key they go under."""
+    import torch
+
+    if cfg.frontend == "audio":
+        emb = 0.1 * torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+        return "embeddings", emb.to(cfg.torch_dtype)
+    return "tokens", torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+
+
+def lm_batch(cfg, B: int, S: int, gen) -> dict:
+    """A prefill's inputs: :func:`step_inputs`, and for an M-RoPE model an
+    image prompt's positions (:func:`mrope_positions`)."""
+    key, x = step_inputs(cfg, B, S, gen)
+    batch = {key: x}
+    if cfg.mrope_sections is not None:
+        batch["positions"] = mrope_positions(B, S, MROPE_TEXT, MROPE_GRID, "cuda")
+    return batch
+
+
+def logits_shape(cfg, B: int) -> tuple:
+    """A prefill's or a decode step's logits: (B, V), or (B, codebooks, V)
+    for an audio model."""
+    return (B, cfg.n_codebooks, cfg.vocab_size) if cfg.frontend == "audio" else (B, cfg.vocab_size)
+
+
+def phase_lm_prefill_cut(phase: str, arch: str, n_layers: int, seq: int = LM_SEQ):
     """``arch`` at full width cut to ``n_layers`` in bf16, weights from
-    init_params(seed=0) on the card; prefill of B x S seeded tokens, every
-    flash call recorded and held against the plain version with the bars of
-    ``flash_failures``.  Returns (cfg, model, launches, worst error, the
-    first flash call's inputs)."""
+    init_params(seed=0) on the card; prefill of B x ``seq`` seeded inputs
+    (:func:`lm_batch`), every flash call recorded and held against the
+    plain version with the bars of ``flash_failures``.  Returns (cfg, model,
+    launches, worst error, the first flash call's inputs)."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.models import transformer as T
@@ -2386,9 +2466,7 @@ def phase_lm_prefill_cut(phase: str, arch: str, n_layers: int):
     model = T.DecoderLM(cfg, tree)
     del tree
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
-                                     generator=gen, device="cuda")}
+    batch = lm_batch(cfg, LM_BATCH, seq, torch.Generator(device="cuda").manual_seed(1))
     with torch.inference_mode():
         with Recorder(fa, ["flash_attention"]) as rec:
             reset_launches()
@@ -2398,7 +2476,7 @@ def phase_lm_prefill_cut(phase: str, arch: str, n_layers: int):
               == n_attn, f"{launches['flash_attention']} flash launches "
               f"({launches['flash_attention_tc']} on the tensor cores), "
               f"{n_attn} attention layers")
-        check(tuple(last.shape) == (LM_BATCH, cfg.vocab_size)
+        check(tuple(last.shape) == logits_shape(cfg, LM_BATCH)
               and bool(torch.isfinite(last).all()), f"{phase} logits")
         errs = [flash_err(out, args, kw)
                 for (_n, args, out), kw in zip(rec.calls, rec.kwargs)]
@@ -2414,13 +2492,15 @@ def phase_lm_prefill_cut(phase: str, arch: str, n_layers: int):
     emit(phase, arch=cfg.name, dtype=cfg.dtype, reduced=reduced,
          d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
          experts=[cfg.n_experts, cfg.top_k, cfg.d_ff, cfg.capacity_factor],
+         window=cfg.window, mrope_sections=cfg.mrope_sections, frontend=cfg.frontend,
+         inputs=sorted(batch), logits_shape=list(last.shape),
          layer_kinds=[f"{k['mixer']}+{k['ffn']}" for k in kinds],
-         batch=LM_BATCH, seq=LM_SEQ, n_params=cfg.n_params(),
+         batch=LM_BATCH, seq=seq, n_params=cfg.n_params(),
          weight_bytes=weight_bytes, init_s=init_s, cold_s=cold_s,
-         warm_s=warm_s, tok_s=LM_BATCH * LM_SEQ / warm_s,
+         warm_s=warm_s, tok_s=LM_BATCH * seq / warm_s,
          peak_memory_bytes=peak, split=split, launches=launches,
          flash_calls=len(errs), flash_shape={"q": list(q.shape), "k": list(k.shape),
-                      "group": q.shape[1] // k.shape[1]},
+                      "group": q.shape[1] // k.shape[1], "window": first[1]["window"]},
          **worst_of(errs), tol=0.03, rel_l2_tol=4e-3,
          elem_bar="2**-8 (|want| + P|V|) + 2e-05", rerun_max_abs_diff=drift)
     return cfg, model, launches, worst_of(errs)["max_abs_err"], first
@@ -2485,12 +2565,43 @@ def serve_cut(arch: str, model) -> dict:
             "peak_memory_bytes": peak, "launches": launches, "decode_trace": trace}
 
 
+def decode_logits(model, cfg, key: str, x):
+    """``x`` (B, S, ...) through S cached decode steps, one position each:
+    the logits stacked to (B, S, ...)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, x.shape[0], x.shape[1])
+        steps = []
+        for t in range(x.shape[1]):
+            logits, cache = T.decode_step(model, cfg, cache, {key: x[:, t:t + 1]}, t)
+            steps.append(logits)
+        return torch.stack(steps, 1)
+
+
+def prefill_vs_decode(model, cfg, key: str, x) -> tuple:
+    """The forward's logits over ``x`` (B, S, ...) against S cached decode
+    steps (:func:`decode_logits`): (max abs, relative L2, the decode's
+    logits finite)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    with torch.inference_mode():
+        full = T.forward(model, cfg, {key: x})
+    dec = decode_logits(model, cfg, key, x)
+    finite = bool(torch.isfinite(dec).all())
+    return float((dec - full).abs().max()), rel_l2(dec, full), finite
+
+
 def crosscheck_f32(cfg) -> dict:
-    """Prefill against a token-by-token decode in float32 at the same width
-    and depth, the same seed's weights before their bf16 rounding, capacity
-    drops off (``capacity_factor = n_experts``: drops depend on the token
-    count, the reference's rule); max abs at the reference's 2e-2, the
-    relative L2 beside it."""
+    """Prefill against a token-by-token (frame-by-frame for audio) decode
+    in float32 at the same width and depth, the same seed's weights before
+    their bf16 rounding, capacity drops off (``capacity_factor =
+    n_experts``: drops depend on the token count, the reference's rule);
+    max abs at the reference's 2e-2, the relative L2 beside it.  An M-RoPE
+    model runs on its default (text) positions: a decode step takes one
+    position for all three streams, as the reference's does."""
     import dataclasses
 
     import torch
@@ -2500,29 +2611,160 @@ def crosscheck_f32(cfg) -> dict:
     cfg32 = dataclasses.replace(cfg, dtype="float32",
                                 capacity_factor=float(cfg.n_experts))
     model = T.DecoderLM(cfg32, init_params(cfg32, seed=0))
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    toks = torch.randint(0, cfg.vocab_size, XCHECK_SHAPE, generator=gen,
-                         device="cuda")
-    with torch.inference_mode():
-        full = T.forward(model, cfg32, {"tokens": toks})
-        cache = T.init_cache(cfg32, toks.shape[0], toks.shape[1])
-        steps = []
-        for t in range(toks.shape[1]):
-            logits, cache = T.decode_step(model, cfg32, cache,
-                                          {"tokens": toks[:, t:t + 1]}, t)
-            steps.append(logits)
-        dec = torch.stack(steps, 1)
-    err = float((dec - full).abs().max())
-    rel = rel_l2(dec, full)
-    check(bool(torch.isfinite(dec).all()), "float32 decode logits not finite")
+    key, x = step_inputs(cfg32, *XCHECK_SHAPE, torch.Generator(device="cuda").manual_seed(3))
+    err, rel, finite = prefill_vs_decode(model, cfg32, key, x)
+    check(finite, "float32 decode logits not finite")
     check(err < XCHECK_TOL, f"{cfg.name} float32 prefill vs decode: max abs "
                             f"{err} (relative L2 {rel})")
-    del model, cache, full, dec
+    del model
     torch.cuda.empty_cache()
     return {"crosscheck_f32_max_abs": err, "crosscheck_f32_tol": XCHECK_TOL,
             "crosscheck_f32_rel_l2": rel,
             "crosscheck_f32_shape": list(XCHECK_SHAPE),
             "crosscheck_f32_capacity_factor": cfg32.capacity_factor}
+
+
+def window_wrap_check(arch: str) -> dict:
+    """h2o-danube in float32 at WRAP_LAYERS layer(s) over WRAP_SEQ tokens,
+    past its window: the prefill (the float32 flash kernel with the window,
+    each call held against the plain version at the kernel's bars) against
+    WRAP_SEQ cached decode steps, whose ring buffer of ``window`` slots
+    overwrites its first WRAP_SEQ - window slots; max abs at XCHECK_TOL.
+    Two controls show that the checks see the window: the kernel's output
+    misses its bars against the plain version without the window, and the
+    decode without the window (a cache that keeps every key) misses
+    XCHECK_TOL against the windowed prefill."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_ref, flash_error,
+                                                      flash_failures)
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.ref import MAX_ABS, REL_L2
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params
+
+    cfg = dataclasses.replace(cut_config(arch, WRAP_LAYERS)[0], dtype="float32")
+    check(cfg.window is not None and WRAP_SEQ > cfg.window,
+          f"{cfg.name}: {WRAP_SEQ} tokens do not pass the window {cfg.window}")
+    tree = init_params(cfg, seed=0)
+    model = T.DecoderLM(cfg, tree)
+    key, x = step_inputs(cfg, 1, WRAP_SEQ, torch.Generator(device="cuda").manual_seed(4))
+    ring = T.init_cache(cfg, 1, WRAP_SEQ)["pos0"]["k"].shape[3]
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), Recorder(fa, ["flash_attention"]) as rec:
+        full = T.forward(model, cfg, {key: x})
+    launches = read_launches()
+    dec = decode_logits(model, cfg, key, x)
+    seconds = time.perf_counter() - t0
+    check(launches["flash_attention"] == WRAP_LAYERS and launches["flash_attention_tc"] == 0,
+          f"window check: {launches['flash_attention']} flash launches, "
+          f"{launches['flash_attention_tc']} on the tensor cores")
+    with torch.inference_mode():
+        errs = [flash_err(out, args, kw) for (_n, args, out), kw in zip(rec.calls, rec.kwargs)]
+        check(len(errs) == WRAP_LAYERS, f"window check: {len(errs)} flash calls recorded")
+        (_n, (q, k, v), out), kw = rec.calls[0], rec.kwargs[0]
+        unwindowed = flash_error(out, attention_ref(q, k, v, **{**kw, "window": None}))
+    del rec, q, k, v, out
+    check(bool(flash_failures(unwindowed, torch.float32)),
+          f"window check: the kernel's output meets its bars without the window too "
+          f"({unwindowed['max_abs_err']})")
+    check(bool(torch.isfinite(dec).all()), "window check: decode logits not finite")
+    check(ring == cfg.window < WRAP_SEQ, f"window check: a ring of {ring} slots")
+    err, rel = float((dec - full).abs().max()), rel_l2(dec, full)
+    del dec
+    check(err < XCHECK_TOL, f"{cfg.name} float32 prefill vs {WRAP_SEQ} decode steps "
+                            f"past the window: max abs {err} (relative L2 {rel})")
+    no_window = dataclasses.replace(cfg, window=None)
+    ctrl = decode_logits(T.DecoderLM(no_window, tree), no_window, key, x)
+    ctrl_err = float((ctrl - full).abs().max())
+    check(ctrl_err > XCHECK_TOL, f"window check: the decode without the window is within "
+                                 f"{XCHECK_TOL} of the windowed prefill ({ctrl_err})")
+    del model, tree, full, ctrl
+    torch.cuda.empty_cache()
+    return {"window": cfg.window, "seq": WRAP_SEQ, "layers": WRAP_LAYERS,
+            "ring_slots": ring, "overwritten_slots": WRAP_SEQ - ring, "max_abs": err,
+            "rel_l2": rel, "tol": XCHECK_TOL, "flash_launches": launches["flash_attention"],
+            "flash": worst_of(errs), "flash_tol": {"max_abs": MAX_ABS[torch.float32],
+                                                    "rel_l2": REL_L2[torch.float32]},
+            "control_kernel_without_window_max_abs": unwindowed["max_abs_err"],
+            "control_decode_without_window_max_abs": ctrl_err, "seconds": seconds}
+
+
+def serve_audio(cfg, model) -> dict:
+    """musicgen's serving, as a loop of cached decode steps (the launcher
+    refuses audio, as the reference's does): AUDIO_REQUESTS requests of
+    AUDIO_PROMPT seeded frames, then AUDIO_STEPS steps teacher-forced on
+    seeded frames, one ``T.decode_step`` a frame; each step timed to its
+    synchronize, the median of the teacher-forced steps."""
+    import statistics
+
+    import torch
+    from repro_torch.models import transformer as T
+
+    n = AUDIO_PROMPT + AUDIO_STEPS
+    _, frames = step_inputs(cfg, AUDIO_REQUESTS, n, torch.Generator(device="cuda").manual_seed(2))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    with torch.inference_mode():
+        cache = T.init_cache(cfg, AUDIO_REQUESTS, n)
+        t0 = time.perf_counter()
+        for t in range(n):
+            ts = time.perf_counter()
+            logits, cache = T.decode_step(model, cfg, cache,
+                                          {"embeddings": frames[:, t:t + 1]}, t)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - ts)
+        wall = time.perf_counter() - t0
+        sample = logits[0].argmax(-1).tolist()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == logits_shape(cfg, AUDIO_REQUESTS)
+          and bool(torch.isfinite(logits).all()), f"audio decode logits {tuple(logits.shape)}")
+    steps = times[AUDIO_PROMPT:]
+    del cache
+    trace = trace_decode(cfg, model, AUDIO_REQUESTS, n)
+    return {"arch": cfg.name, "requests": AUDIO_REQUESTS, "prompt_len": AUDIO_PROMPT,
+            "generated": AUDIO_STEPS, "teacher_forced": True, "wall_s": wall,
+            "tok_s": AUDIO_REQUESTS * AUDIO_STEPS / sum(steps),
+            "median_step_ms": statistics.median(steps) * 1e3, "sample": sample,
+            "peak_memory_bytes": peak, "launches": launches, "decode_trace": trace}
+
+
+def phase_attention_families(flash: dict, cut_s: dict) -> None:
+    """The pairs lm_prefill_<tag> and lm_serve_<tag> of FAMILY_RUNS, one
+    family at a time, each freed before the next: the prefill's flash
+    launches and worst error into the flash row ``flash``, its shape's
+    times into ``by_shape``, each family's seconds into ``cut_s``."""
+    import gc
+
+    import torch
+
+    for arch, depth, tag, f32_depth in FAMILY_RUNS:
+        t_cut = time.perf_counter()
+        cfg, model, cut_launches, err, first = phase_lm_prefill_cut(
+            f"lm_prefill_{tag}", arch, depth,
+            seq=DANUBE_SEQ if tag == "danube" else LM_SEQ)
+        flash["launches_by_path"][f"lm_prefill_{tag}"] = cut_launches["flash_attention"]
+        flash["max_abs_err"] = max(flash["max_abs_err"], err)
+        flash["by_shape"][f"lm_prefill_{tag}"] = flash_shape_times(first)
+        del first
+        served = serve_audio(cfg, model) if cfg.frontend == "audio" else serve_cut(arch, model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        xcfg, xcut = cut_config(arch, f32_depth) if f32_depth else (cfg, None)
+        xcheck = crosscheck_f32(xcfg)
+        if xcut:
+            xcheck["crosscheck_f32_reduced"] = xcut
+        if cfg.window is not None:
+            xcheck["window_check"] = window_wrap_check(arch)
+        emit(f"lm_serve_{tag}", reduced=cut_config(arch, depth)[1], **served, **xcheck)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cut_s[tag] = time.perf_counter() - t_cut
 
 
 def flash_shape_times(first) -> dict:
@@ -2532,16 +2774,30 @@ def flash_shape_times(first) -> dict:
     from repro_torch.kernels.flash_attention import attention_ref
     from repro_torch.kernels.flash_attention import kernel as fa
 
+    import torch
+
     (q, k, v), kw = first
     B, H, S, D = q.shape
     ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw), iters=10)
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=3)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), iters=10)
+    if kw["window"]:
+        # the window as a boolean mask (True: attend), causal within it
+        i = torch.arange(S, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - kw["window"])
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), iters=10)
+        del mask
+    else:
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters=10)
     b_ms, b_by = flash_bound(q, k, v, kw["causal"], kw["window"])
-    flops = 4 * B * H * D * attended_pairs(S, kw["causal"], kw["window"])
+    pairs = attended_pairs(S, kw["causal"], kw["window"])
+    flops = 4 * B * H * D * pairs
     return {"q": list(q.shape), "k": list(k.shape), "group": H // k.shape[1],
+            "window": kw["window"], "attended_pairs": pairs,
+            "causal_pairs": S * (S + 1) // 2,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_mask": "boolean window" if kw["window"] else "is_causal",
             "bound_ms": b_ms, "bound_by": b_by, "tflops": flops / ms / 1e9}
 
 
@@ -3547,6 +3803,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         cut_s[tag] = time.perf_counter() - t_cut
+    # ---- the five attention families: prefill, serving, float32 checks ----
+    phase_attention_families(flash, cut_s)
     # ---- training: the kernels' gradients, then each training path ----
     t_train = time.perf_counter()
     phase_train_grad_kernels()

@@ -35,8 +35,8 @@ from typing import Any
 import torch
 
 __all__ = ["DEFAULT_RULES", "AxisRules", "axis_index", "axis_rules", "block_index",
-           "constrain", "current_rules", "exchange", "gather_blocks", "is_sharded",
-           "local_apply", "mesh_axes", "placements_for", "tree_shardings"]
+           "constrain", "current_rules", "exchange", "gather_blocks", "gather_columns",
+           "is_sharded", "local_apply", "mesh_axes", "placements_for", "tree_shardings"]
 
 # default rule table: logical name -> tuple of candidate mesh axes
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
@@ -296,6 +296,44 @@ def gather_blocks(t: torch.Tensor, axes: tuple[str, ...]) -> torch.Tensor:
     mesh = current_rules().mesh
     placements = [Shard(0) if a in axes else Replicate() for a in mesh.mesh_dim_names]
     return DTensor.from_local(t, mesh, placements, run_check=False).full_tensor()
+
+
+def gather_columns(t: torch.Tensor, axis: str, ranges: list[tuple[int, int]],
+                   width: int) -> torch.Tensor:
+    """Columns ``ranges[i]`` (global indices ``[lo, hi)`` of the last
+    dimension) for this rank, rank i of mesh axis ``axis``, from inside a
+    :func:`local_apply` body, where ``t`` holds this rank's block of a
+    ``width``-column tensor split evenly over ``axis``, or all of it.
+    Each rank sends the others only the columns they ask for, in one
+    all-to-all (none where no rank needs another's), as GSPMD's
+    collective-permutes move the halo of a dimension split unevenly;
+    differentiable (the transpose sends the columns' gradients back)."""
+    mesh, dim = _group(axis)
+    me = mesh.get_local_rank(axis)
+    lo, hi = ranges[me]
+    w = t.shape[-1]
+    if w == width:                                   # whole on every rank
+        return t[..., lo:hi]
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+
+    def part(src: int, dst: int) -> tuple[int, int]:
+        """The global columns rank ``src`` sends rank ``dst``."""
+        a, b = max(ranges[dst][0], src * w), min(ranges[dst][1], (src + 1) * w)
+        return (a, b) if b > a and src != dst else (0, 0)
+
+    n = len(ranges)
+    if not any(part(s, d)[1] for s in range(n) for d in range(n)):
+        return t[..., lo - me * w:hi - me * w]
+    cols = t.movedim(-1, 0)
+    sends = [part(me, d) for d in range(n)]
+    send = torch.cat([cols[a - me * w:b - me * w] for a, b in sends])
+    recv_sizes = [b - a for a, b in (part(s, me) for s in range(n))]
+    recv = all_to_all_single_autograd(send.contiguous(), recv_sizes,
+                                      [b - a for a, b in sends], (mesh, dim))
+    pieces = list(recv.split(recv_sizes))
+    own = max(lo, me * w), min(hi, (me + 1) * w)
+    pieces[me] = cols[own[0] - me * w:own[1] - me * w]
+    return torch.cat([q for q in pieces if q.shape[0]]).movedim(0, -1)
 
 
 def block_index(axes: tuple[str, ...]) -> int:

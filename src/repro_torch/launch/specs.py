@@ -18,7 +18,10 @@ each with the axes of its parameter's stacked leaf less the ``layers`` axis.
 Parameters are stored as the rules place them, "embed" over "data" (FSDP,
 ZeRO-3), and each step first gathers them to their compute placement, the
 same rules without that mapping (:func:`_unshard`): the all-gathers GSPMD
-inserts for the reference.  The expert stacks stay as stored until their
+inserts for the reference.  Where the kv heads divide the "model" axis, the
+kv projections' compute placement splits their columns over it as the
+query heads' are split (GSPMD carries the head split of the reshape back
+onto them).  The expert stacks stay as stored until their
 MoE form places them.  The training step's gradients come back as
 partial sums over the data axis, and the optimizer's update of the stored
 (sharded) parameters reduce-scatters them.  Left to itself, DTensor would
@@ -36,6 +39,7 @@ import torch
 from ..configs import ShapeSpec
 from ..distributed import AxisRules, current_rules, placements_for
 from ..models import transformer as T
+from ..models.attention import kv_heads_split
 from ..models.common import ModelConfig, param_axes, param_shapes_concrete, param_specs
 from ..optim import OptConfig, adamw_update, opt_state_axes
 from ..perfmodel.opcount import OpCounter, OpReport
@@ -136,7 +140,7 @@ def _micro_batches(batch: dict, n: int) -> list[dict]:
     return [{k: parts[k][i] for k in batch} for i in range(n)]
 
 
-def _unshard(params: dict, axes: dict, whole_table: bool = False) -> dict:
+def _unshard(params: dict, axes: dict, cfg: ModelConfig, whole_table: bool = False) -> dict:
     """Each ``DTensor`` parameter redistributed from its stored placement to
     its compute placement (the active rules with "embed" unmapped); plain
     tensors, and the expert stacks, as they are: each MoE form places those
@@ -151,6 +155,8 @@ def _unshard(params: dict, axes: dict, whole_table: bool = False) -> dict:
     from torch.distributed.tensor import DTensor
 
     compute = AxisRules(r.mesh, {**r.rules, "embed": ()})
+    if kv_heads_split(cfg):
+        compute.rules["kv"] = r.rules["cache_heads"]
 
     def rec(t, a, path):
         if isinstance(t, dict):
@@ -173,7 +179,7 @@ def make_train_cell(cfg: ModelConfig, shape: ShapeSpec, opt: OptConfig | None = 
     opt = opt or OptConfig()
 
     def train_step(params, opt_state, batch):
-        model = T.DecoderLM(cfg, _unshard(params, paxes, whole_table=True))
+        model = T.DecoderLM(cfg, _unshard(params, paxes, cfg, whole_table=True))
         model.requires_grad_(True)
         work = list(model.parameters())
         if grad_accum == 1:
@@ -204,7 +210,7 @@ def make_train_cell(cfg: ModelConfig, shape: ShapeSpec, opt: OptConfig | None = 
 def make_prefill_cell(cfg: ModelConfig, shape: ShapeSpec) -> Cell:
     def prefill_step(params, batch):
         with torch.no_grad():
-            return T.prefill(T.DecoderLM(cfg, _unshard(params, paxes)), cfg, batch)
+            return T.prefill(T.DecoderLM(cfg, _unshard(params, paxes, cfg)), cfg, batch)
 
     pshape, paxes = param_specs_tree(cfg)
     bshape, baxes = batch_specs(cfg, shape)
@@ -216,7 +222,7 @@ def make_decode_cell(cfg: ModelConfig, shape: ShapeSpec) -> Cell:
     reference traces the position; the port's step takes it as an int)."""
     def decode_step(params, cache, batch):
         with torch.no_grad():
-            return T.decode_step(T.DecoderLM(cfg, _unshard(params, paxes)), cfg, cache,
+            return T.decode_step(T.DecoderLM(cfg, _unshard(params, paxes, cfg)), cfg, cache,
                                  batch, shape.seq_len - 1)
 
     pshape, paxes = param_specs_tree(cfg)

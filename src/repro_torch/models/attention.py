@@ -13,7 +13,8 @@ from functools import partial
 import torch
 from torch import nn
 
-from ..distributed import axis_index, constrain, current_rules, is_sharded, local_apply
+from ..distributed import (axis_index, constrain, current_rules, gather_columns, is_sharded,
+                           local_apply)
 from ..kernels.flash_attention import flash_attention
 from .common import ModelConfig, apply_mrope, apply_rope
 
@@ -70,9 +71,12 @@ def _project_qkv_sharded(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.
         return q, _rotate(k, positions, cfg), v
     pos_axes = ("batch", "seq") if positions.dim() == 2 else (None, "batch", "seq")
     qax = ("batch", "seq", "heads", None)
+    # where the kv heads divide "model" too, each rank holds the columns of
+    # its own kv heads (the placement the dry-run computes them in)
+    wax = (None, "cache_heads") if kv_heads_split(cfg) else (None, None)
     k, v = local_apply(partial(_kv_per_query_head, cfg=cfg),
                        (q, x, p.wk, p.wv, positions),
-                       (qax, ("batch", "seq", None), (None, None), (None, None), pos_axes),
+                       (qax, ("batch", "seq", None), wax, wax, pos_axes),
                        (0, 0))
     return q, k, v
 
@@ -83,19 +87,105 @@ def _per_query_head(cfg: ModelConfig) -> bool:
     return bool(current_rules().spec_for(("heads",), (cfg.n_heads,)))
 
 
+def kv_heads_split(cfg: ModelConfig) -> bool:
+    """Whether the rules split the kv heads (the decode cache's heads): then
+    a mesh step computes k and v split by kv head, with the kv projections'
+    columns split as the cache's heads are (the launch layer's compute
+    placement, ``launch.specs._unshard``)."""
+    return bool(current_rules().spec_for(("cache_heads",), (cfg.n_kv_heads,)))
+
+
 def _kv_per_query_head(q, x, wk, wv, positions, *, cfg: ModelConfig):
     """Local body: k and v (B, S, H_loc, Dh) for this rank's query heads
     (``q``'s ``H_loc`` local heads, from head ``H_loc`` x its "model"
-    rank), from the kv heads they read."""
+    rank), from the kv heads they read.  ``wk`` and ``wv`` hold every kv
+    head's columns, or only this rank's where the kv heads are split."""
     H_loc, Dh = q.shape[2], q.shape[3]
     group = cfg.n_heads // cfg.n_kv_heads
-    h0 = axis_index("model") * H_loc
+    rank = axis_index("model")
+    h0 = rank * H_loc
     j0, j1 = h0 // group, (h0 + H_loc - 1) // group + 1
+    # the first column of ``wk``: that of this rank's first kv head, if split
+    c0 = 0 if wk.shape[1] == cfg.n_kv_heads * Dh else rank * wk.shape[1]
+    cols = slice(j0 * Dh - c0, j1 * Dh - c0)
     B, S, _ = x.shape
-    k = (x @ wk[:, j0 * Dh:j1 * Dh]).reshape(B, S, j1 - j0, Dh)
-    v = (x @ wv[:, j0 * Dh:j1 * Dh]).reshape(B, S, j1 - j0, Dh)
+    k = (x @ wk[:, cols]).reshape(B, S, j1 - j0, Dh)
+    v = (x @ wv[:, cols]).reshape(B, S, j1 - j0, Dh)
     idx = torch.arange(h0, h0 + H_loc, device=x.device) // group - j0
     return _rotate(k, positions, cfg)[:, :, idx], v[:, :, idx]
+
+
+def _uneven_heads_axis(cfg: ModelConfig) -> str | None:
+    """The mesh axis the heads rule names where it does not divide the
+    query heads but divides their ``H * Dh`` columns (starcoder2 smoke's 6
+    heads on a "model" axis of 4, musicgen's 24 on 16), else None.  The
+    projections split there by column, as GSPMD splits them."""
+    r = current_rules()
+    if r.spec_for(("heads",), (cfg.n_heads,)):
+        return None
+    sizes = dict(zip(r.mesh.mesh_dim_names, r.mesh.shape))
+    axis = next((a for a in r.rules.get("heads", ()) if sizes.get(a, 1) > 1), None)
+    return axis if axis and cfg.n_heads * cfg.head_dim % sizes[axis] == 0 else None
+
+
+def _column_spans(cfg: ModelConfig, n: int) -> list[tuple[int, int, int, int]]:
+    """For rank i of ``n`` holding columns ``[i w, (i + 1) w)`` of the
+    ``H * Dh`` (``w = H * Dh / n``): the query heads ``[h0, h1)`` those
+    columns overlap and the kv heads ``[j0, j1)`` they read."""
+    H, Dh = cfg.n_heads, cfg.head_dim
+    w, group = H * Dh // n, H // cfg.n_kv_heads
+    spans = []
+    for i in range(n):
+        h0, h1 = i * w // Dh, ((i + 1) * w - 1) // Dh + 1
+        spans.append((h0, h1, h0 // group, (h1 - 1) // group + 1))
+    return spans
+
+
+def _my_columns(cfg: ModelConfig, axis: str):
+    """(spans, this rank's span, the offset and width of its own columns in
+    its heads' ``(h1 - h0) * Dh``) on mesh axis ``axis``."""
+    mesh = current_rules().mesh
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    spans = _column_spans(cfg, n)
+    r = axis_index(axis)
+    w = cfg.n_heads * cfg.head_dim // n
+    return spans, spans[r], r * w - spans[r][0] * cfg.head_dim, w
+
+
+def _attn_by_columns(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                     axis: str) -> torch.Tensor:
+    """The dry-run's attention where the query heads do not divide mesh
+    axis ``axis``: q, k and v stay split by column as the projections give
+    them; each rank gathers the columns of the heads its q columns overlap
+    from its neighbours (:func:`gather_columns`), computes those heads, and
+    keeps its own columns of their output, which the rows of ``wo`` it
+    holds take.  GSPMD splits the reference's heads so, with its halo
+    exchanges; gathering q, k and v whole instead would have every rank
+    compute every head.  Returns (B, S, D), partial sums over ``axis``."""
+    q = x @ p.wq
+    k = x @ constrain(p.wk, (None, "heads"))
+    v = x @ constrain(p.wv, (None, "heads"))
+    ax = ("batch", "seq", "heads")
+    pos_axes = ("batch", "seq") if positions.dim() == 2 else (None, "batch", "seq")
+    o = local_apply(partial(_columns_body, cfg=cfg, axis=axis), (q, k, v, positions),
+                    (ax, ax, ax, pos_axes), (0,))
+    return o @ p.wo
+
+
+def _columns_body(q, k, v, positions, *, cfg: ModelConfig, axis: str):
+    """Local body of :func:`_attn_by_columns`."""
+    H, Hk, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    spans, (h0, h1, j0, j1), c0, w = _my_columns(cfg, axis)
+    B, S = q.shape[:2]
+    qh = gather_columns(q, axis, [(a * Dh, b * Dh) for a, b, _, _ in spans], H * Dh)
+    kh, vh = (gather_columns(t, axis, [(c * Dh, d * Dh) for _, _, c, d in spans], Hk * Dh)
+              .reshape(B, S, j1 - j0, Dh) for t in (k, v))
+    qh = _rotate(qh.reshape(B, S, h1 - h0, Dh), positions, cfg)
+    idx = torch.arange(h0, h1, device=q.device) // (H // Hk) - j0
+    kh = _rotate(kh, positions, cfg)[:, :, idx]
+    o = _attention_core(qh.transpose(1, 2), kh.transpose(1, 2), vh[:, :, idx].transpose(1, 2),
+                        causal=True, window=cfg.window, f32_scores=cfg.attn_f32)
+    return o.transpose(1, 2).reshape(B, S, (h1 - h0) * Dh)[..., c0:c0 + w]
 
 
 def _dense_attention(q, k, v, *, causal: bool, window: int | None,
@@ -146,9 +236,14 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     kernel, which computes its softmax in float32 whatever ``cfg.attn_f32``
     says, as the reference's TPU route ignores it.  Any other tensor (the
     CPU, the dry-run's ``meta`` shards) takes the reference's plain path,
-    :func:`_dense_attention` with ``f32_scores=cfg.attn_f32``.
+    :func:`_dense_attention` with ``f32_scores=cfg.attn_f32``.  On a mesh
+    whose heads axis does not divide the query heads the dry-run takes
+    :func:`_attn_by_columns` and forms no (k, v) (None): no step reads them.
     """
     B, S, _ = x.shape
+    axis = _uneven_heads_axis(cfg) if is_sharded(x) else None
+    if axis is not None:
+        return _attn_by_columns(p, x, cfg, positions, axis), None
     q, k, v = _project_qkv(p, x, cfg, positions)
     qh = q.transpose(1, 2)   # (B,H,S,Dh)
     kh = k.transpose(1, 2)
@@ -159,7 +254,7 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
         o = _dense_attention(qh, kh, vh, causal=True, window=cfg.window,
                              f32_scores=cfg.attn_f32)
     # pinned to the heads axis as the head count divides, so the
-    # gradient's head split meets a placement it can view (24 heads on 16)
+    # gradient's head split meets a placement it can view
     o = constrain(o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim),
                   ("batch", "seq", "heads"), (B, S, cfg.n_heads))
     return o @ p.wo, (kh, vh)
@@ -172,6 +267,19 @@ def _decode_core(q, keys, values, *, valid: torch.Tensor) -> torch.Tensor:
     s = s / torch.sqrt(torch.tensor(float(q.shape[-1])))
     s = s.masked_fill(~valid, -1e30)
     return torch.matmul(torch.softmax(s, dim=-1), values.float())
+
+
+def _decode_columns(q, cache_k, cache_v, *, cfg: ModelConfig, axis: str, core):
+    """Local body of the decode step where the query heads do not divide
+    ``axis``: q (B, 1, H * Dh) whole, the caches whole over ``axis``; this
+    rank's own columns of its heads' output (B, 1, w), float32."""
+    Dh = cfg.head_dim
+    _, (h0, h1, _, _), c0, w = _my_columns(cfg, axis)
+    B = q.shape[0]
+    idx = torch.arange(h0, h1, device=q.device) // (cfg.n_heads // cfg.n_kv_heads)
+    o = core(q[..., h0 * Dh:h1 * Dh].reshape(B, 1, h1 - h0, Dh).transpose(1, 2),
+             cache_k[:, idx], cache_v[:, idx])
+    return o.transpose(1, 2).reshape(B, 1, (h1 - h0) * Dh)[..., c0:c0 + w]
 
 
 def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
@@ -206,7 +314,17 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
     else:
         valid = kpos <= pos_idx
     core = partial(_decode_core, valid=valid)
-    if is_sharded(q) and not current_rules().spec_for(("cache_heads",), (Hk,)):
+    axis = _uneven_heads_axis(cfg) if is_sharded(q) else None
+    if axis is not None:
+        # the query heads do not divide the axis: each rank the heads its
+        # columns of wo read, as in :func:`_attn_by_columns`
+        cax = ("batch", None, None, None)
+        split = current_rules().placements_for(("batch", None, "heads"), (B, 1, H * Dh))
+        o = local_apply(partial(_decode_columns, cfg=cfg, axis=axis, core=core),
+                        (q.reshape(B, 1, H * Dh), cache_k, cache_v),
+                        (("batch", None, None), cax, cax), (split,))
+        return o.to(x.dtype) @ p.wo, cache_k, cache_v
+    if is_sharded(q) and not kv_heads_split(cfg):
         # the dry-run on a mesh whose "model" axis the kv heads do not
         # divide: the reference's form, the cache repeated to every query
         # head, shard by shard over the batch rows and query heads

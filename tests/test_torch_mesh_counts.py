@@ -3,7 +3,7 @@
 Rank 0's FLOPs and collective bytes (``count_cell`` on a fake (2, 4) data x
 model mesh) over the reference's per-device HLO dot count and collective
 operand bytes on the same mesh shape (eight fake CPU devices, its cells
-lowered on an ``Auto``-axis ``jax.sharding.Mesh``, all 21 in one child
+lowered on an ``Auto``-axis ``jax.sharding.Mesh``, all 36 in one child
 process), for every family's train, prefill and decode step: the smoke
 configs at S = 64, B = 4.  Bars: FLOPs at most 1.20x (train and decode)
 and 1.143x (prefill) the reference's count, collective bytes at most 1.5x,
@@ -18,12 +18,20 @@ collective bytes):
     qwen3-moe, moe_shmap  1.0133  1.186   1.0000  0.916   1.0396  0.876
     kimi-k2               1.0206  1.138   1.0000  0.824   1.1048  0.748
     jamba                 1.0057  1.083   1.0000  0.882   1.0134  0.961
+    deepseek-7b           1.0000  1.400   1.0000  0.897   1.0000  1.145
+    h2o-danube-3-4b       1.0196  1.361   1.0000  0.900   1.0833  0.993
+    starcoder2-15b        0.8874  1.311   0.8833  0.912   0.9298  0.933
+    musicgen-medium       1.0000  1.139   1.0000  1.000   1.0000  1.000
+    qwen2-vl-72b          1.0196  1.361   1.0000  0.900   1.0769  0.804
 
 (FLOPs up to 3.82x before the repair of the decode step, the kv
 projections, the Mamba mixer and the MoE forms; collective bytes 0.455x to
 2.153x before the all-to-all dispatch and combine of the global MoE form,
 the kv heads per query head and the partial-sum gradients of
-``local_apply``).  * held at the port's own bytes: see ``OWN_BYTES``.
+``local_apply``; deepseek-7b up to 1.610x and starcoder2's FLOPs up to
+1.2365x before the kv heads' column split and the column-split attention
+of an uneven head split).  * held at the port's own bytes: see
+``OWN_BYTES``.
 Each "model" rank projects the kv head(s) its query heads read, as GSPMD
 gives each rank of the reference's program, so a decode step counts a
 little over the reference, which splits those products' D over two ranks.
@@ -84,7 +92,9 @@ OWN_BYTES = {("qwen3-moe-235b-a22b", "moe_local", "train"): 1_332_972.0,
              ("qwen3-moe-235b-a22b", "moe_local", "prefill"): 280_192.0}
 FORMS = [("yi-9b", None), ("rwkv6-1.6b", None), ("qwen3-moe-235b-a22b", None),
          ("qwen3-moe-235b-a22b", "moe_local"), ("qwen3-moe-235b-a22b", "moe_shmap"),
-         ("kimi-k2-1t-a32b", None), ("jamba-v0.1-52b", None)]
+         ("kimi-k2-1t-a32b", None), ("jamba-v0.1-52b", None), ("deepseek-7b", None),
+         ("h2o-danube-3-4b", None), ("starcoder2-15b", None), ("musicgen-medium", None),
+         ("qwen2-vl-72b", None)]
 KINDS = ("train", "prefill", "decode")
 
 _REFERENCE = """
