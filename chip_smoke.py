@@ -962,7 +962,10 @@ def phase_lm_serve(cfg, model):
 
 def trace_decode(cfg, model, batch: int, context: int, steps: int = 3) -> dict:
     """torch.profiler over a few eager decode steps: host time, device busy
-    time (the sum of kernel times) and kernels per step."""
+    time (the sum of kernel times) and kernels per step. The profiler turns
+    the model's spans on (``repro_torch.runtime.spans``): the host time
+    includes theirs, a root and each attention layer's ``attn`` a step,
+    each with a pair of CUDA events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
@@ -2533,7 +2536,8 @@ def prefill_split(cfg, model, batch) -> dict:
 
             t, h = host_s(mix)
             mixer_s[mixer] = mixer_s.get(mixer, 0.0) + t
-            t, h = host_s(lambda h=h, blk=blk: blk._ffn(h))
+            t, h = host_s(lambda h=h, blk=blk: blk._ffn(
+                h, rmsnorm(h, blk.norm_ffn, cfg.norm_eps)))
             ffn_s[ffn] = ffn_s.get(ffn, 0.0) + t
         logits_s, _ = host_s(lambda: model.logits_out(h)[:, -1])
     return {"embed_s": embed_s, "mixer_s": mixer_s, "ffn_s": ffn_s,

@@ -16,6 +16,7 @@ from torch import nn
 from ..distributed import (axis_index, constrain, current_rules, gather_columns, is_sharded,
                            local_apply)
 from ..kernels.flash_attention import flash_attention
+from ..runtime.spans import count
 from .common import ModelConfig, apply_mrope, apply_rope
 
 
@@ -307,12 +308,11 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
     slot = pos_idx % S_ctx if cfg.window is not None else pos_idx
     cache_k[:, :, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, :, slot] = v[:, 0].to(cache_v.dtype)
-    kpos = torch.arange(S_ctx, device=x.device)
-    if cfg.window is not None:
-        # ring buffer: valid entries are the last min(pos+1, window) writes
-        valid = kpos < min(pos_idx + 1, S_ctx)
-    else:
-        valid = kpos <= pos_idx
+    # the first min(pos + 1, S_ctx) slots hold a token (a ring's are its
+    # last writes); the core reads all S_ctx of them
+    n_valid = min(pos_idx + 1, S_ctx)
+    valid = torch.arange(S_ctx, device=x.device) < n_valid
+    count(kv_read=S_ctx, kv_valid=n_valid)
     core = partial(_decode_core, valid=valid)
     axis = _uneven_heads_axis(cfg) if is_sharded(q) else None
     if axis is not None:

@@ -21,6 +21,13 @@ Activations are pinned with :func:`repro_torch.distributed.constrain` at
 the reference's sites (the embedding, each block's two residual sums, the
 logits): a no-op on plain tensors, a redistribution of ``DTensor``s under
 an active ``axis_rules`` context (the dry-run).
+
+Spans (:mod:`repro_torch.runtime.spans`, recorded only under the profiler
+or ``spans.recording()``): ``prefill`` and ``decode_step`` are roots;
+inside a full forward each block's ``norm`` (its two RMSNorms) and
+``logits`` (:meth:`DecoderLM.logits_out` over every position); inside a
+decode step each attention layer's ``attn``, which ``attn_decode`` gives
+the cache positions it reads and those that hold a token.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..distributed import constrain
+from ..runtime.spans import span
 from .attention import Attention, attn_decode, attn_forward
 from .common import ModelConfig, cross_entropy, rmsnorm
 from .mamba import Mamba, mamba_decode, mamba_forward, mamba_init_state
@@ -82,8 +90,9 @@ class Block(nn.Module):
         else:
             self.cmix = ChannelMix(**p["cmix"])
 
-    def _ffn(self, h: torch.Tensor, state: dict | None = None) -> torch.Tensor:
-        hn = rmsnorm(h, self.norm_ffn, self.cfg.norm_eps)
+    def _ffn(self, h: torch.Tensor, hn: torch.Tensor,
+             state: dict | None = None) -> torch.Tensor:
+        """``h`` plus the FFN of ``hn``, which is ``h`` after ``norm_ffn``."""
         if self.kind["ffn"] == "dense":
             return h + self.ffn(hn)
         if self.kind["ffn"] == "moe":
@@ -95,31 +104,38 @@ class Block(nn.Module):
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        hn = rmsnorm(h, self.norm_mixer, cfg.norm_eps)
+        with span("norm", h.device):
+            hn = rmsnorm(h, self.norm_mixer, cfg.norm_eps)
         if self.kind["mixer"] == "attn":
             y, _ = attn_forward(self.attn, hn, cfg, positions)
         elif self.kind["mixer"] == "mamba":
             y = mamba_forward(self.mamba, hn, cfg)
         else:
             y, _ = rwkv_time_mix(self.rwkv, hn, cfg)
-        return constrain(self._ffn(constrain(h + y, ACT)), ACT)
+        h = constrain(h + y, ACT)
+        with span("norm", h.device):
+            hn = rmsnorm(h, self.norm_ffn, cfg.norm_eps)
+        return constrain(self._ffn(h, hn), ACT)
 
     def decode(self, h: torch.Tensor, c: dict, pos_idx: int) -> torch.Tensor:
         """One token; ``c`` is this layer's cache (views), updated in place."""
         cfg = self.cfg
         hn = rmsnorm(h, self.norm_mixer, cfg.norm_eps)
+        state = None
         if self.kind["mixer"] == "attn":
-            y, _, _ = attn_decode(self.attn, hn, cfg, c["k"], c["v"], pos_idx)
-            return constrain(self._ffn(constrain(h + y, ACT)), ACT)
-        if self.kind["mixer"] == "mamba":
+            with span("attn", h.device):
+                y, _, _ = attn_decode(self.attn, hn, cfg, c["k"], c["v"], pos_idx)
+        elif self.kind["mixer"] == "mamba":
             y, st = mamba_decode(self.mamba, hn, cfg, c)
             c["conv"].copy_(st["conv"])
             c["ssm"].copy_(st["ssm"])
-            return constrain(self._ffn(constrain(h + y, ACT)), ACT)
-        y, st = rwkv_time_mix(self.rwkv, hn, cfg, state=c["att"])
-        c["att"]["shift"].copy_(st["shift"])
-        c["att"]["wkv"].copy_(st["wkv"])
-        return constrain(self._ffn(constrain(h + y, ACT), c["cmix"]), ACT)
+        else:
+            y, st = rwkv_time_mix(self.rwkv, hn, cfg, state=c["att"])
+            c["att"]["shift"].copy_(st["shift"])
+            c["att"]["wkv"].copy_(st["wkv"])
+            state = c["cmix"]
+        h = constrain(h + y, ACT)
+        return constrain(self._ffn(h, rmsnorm(h, self.norm_ffn, cfg.norm_eps), state), ACT)
 
 
 class DecoderLM(nn.Module):
@@ -183,7 +199,8 @@ class DecoderLM(nn.Module):
                                use_reentrant=False)
             else:
                 h = _group_forward(group, h, positions)
-        return self.logits_out(h)
+        with span("logits", h.device):
+            return self.logits_out(h)
 
 
 def _group_forward(blocks: nn.ModuleList, h: torch.Tensor,
@@ -222,7 +239,8 @@ def loss_fn(params: DecoderLM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 def prefill(params: DecoderLM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Prefill: the full forward's (B, S, V) logits at the last position."""
-    return forward(params, cfg, batch)[:, -1]
+    with span("prefill", params.final_norm.device):
+        return forward(params, cfg, batch)[:, -1]
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, context: int,
@@ -284,8 +302,9 @@ def decode_step(params: DecoderLM, cfg: ModelConfig, cache: dict, batch: dict,
     """One-token decode.  batch: {"tokens": (B,1)} (audio: {"embeddings":
     (B,1,D)}); ``pos_idx``: absolute position.  Updates ``cache`` in place and
     returns (logits (B,V) or (B,C,V), cache)."""
-    h = params.embed_in(batch)
-    for layer, blk in enumerate(params.blocks):
-        g, i = divmod(layer, cfg.period)
-        h = blk.decode(h, _slice(cache[f"pos{i}"], g), pos_idx)
-    return params.logits_out(h)[:, 0], cache
+    with span("decode_step", params.final_norm.device):
+        h = params.embed_in(batch)
+        for layer, blk in enumerate(params.blocks):
+            g, i = divmod(layer, cfg.period)
+            h = blk.decode(h, _slice(cache[f"pos{i}"], g), pos_idx)
+        return params.logits_out(h)[:, 0], cache
