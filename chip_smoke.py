@@ -78,8 +78,8 @@ counted from 0; a shard count above the cards refused; the Fig. 7 pack at
 ``shards=None``), lm_prefill (yi-9b, bf16, B = 2, S = 4096; every flash call on the
 tensor-core kernel),
 lm_serve (``repro_torch.launch.serve``
-with yi-9b, 8 requests; prefill against decode beside the bf16 batch-split
-floor), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096; every wkv6
+with yi-9b, 8 requests, every layer of every step through the decode-attention
+kernel; prefill against decode beside the bf16 batch-split floor), lm_prefill_rwkv (rwkv6-1.6b, bf16, B = 2, S = 4096; every wkv6
 call on the chunked route), lm_serve_rwkv (the launcher with rwkv6-1.6b, 8
 requests; every wkv6 call on the serial route), lm_prefill_moe and
 lm_serve_moe (qwen3-moe-235b-a22b, 2 of 94 layers: two flash calls at GQA
@@ -142,7 +142,9 @@ the launch floor).  The launch counts are
 set to 0 just before each path is driven and read just after it; the
 ppoly and flash rows carry each path's counts in ``launches_by_path``;
 the flash row also times the kernel at the MoE, Jamba, kimi-k2 and the
-five attention families' prefill shapes (``by_shape``).
+five attention families' prefill shapes (``by_shape``); the decode-attention
+row times its kernel at the decode cell's shape beside the plain core and
+``scaled_dot_product_attention`` (``by_valid``).
 
 Imports nothing of JAX or of the reference package.  Exits with code 2 and
 prints no result when no CUDA device is present or when the port's sources
@@ -186,6 +188,12 @@ FLASH = {"name": "flash_attention", "route": "cuda",
 FLASH_LONG = (1, 32, 4, 32_768, 128)   # B, H, Hkv, S, D: prefill_32k at yi-9b's heads
 FLASH_LONG_ROWS = 2_048             # query rows per block of its plain check
 LM_ARCH = "yi-9b"
+#: the decode cell's shape (bench/cells/yi-9b.decode-b128.json): 128
+#: sequences, yi-9b's 4 kv heads of 128 with 8 query heads each, a cache of
+#: 4,096 slots; n_valid near the cell's traced positions, and the full cache
+DECODE_SHAPE = (128, 4, 8, 128, 4096)    # B, Hk, G, D, S
+DECODE_VALID = (2250, 4096)
+DECODE_SPLIT_BATCH = 8                   # serving at 8 requests: 32 blocks, split
 LM_BATCH, LM_SEQ = 2, 4096          # the train_4k length
 SERVE_TOL = 5e-2                    # prefill vs decode logits, relative L2
 WKV6 = {"name": "wkv6", "route": "cuda", "source": "src/repro_torch/csrc/wkv6.cu",
@@ -347,6 +355,26 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int = 50) -> float:
+    """Mean device time of ``fn()`` over ``iters`` runs, after a warm-up,
+    launched while the device sleeps (~0.1 s) so the runs are queued and
+    run back to back: for calls shorter than the host's cost to launch
+    them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def median_s(fn, runs: int = 5) -> float:
     """Median wall seconds of ``fn()`` over ``runs`` calls, each ending in a
     device synchronize, after one warm-up call."""
@@ -400,11 +428,12 @@ def check_torch_report(rep, what: str) -> None:
 # ------------------------------------------------ recording the main path ----
 def kernel_modules():
     """The binding module of each kernel library; each keeps its counts."""
+    from repro_torch.kernels.decode_attention import kernel as da
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ppoly_eval import kernel as pe
     from repro_torch.kernels.wkv6 import kernel as wk
 
-    return pe, fa, wk
+    return pe, fa, wk, da
 
 
 def reset_launches() -> None:
@@ -941,6 +970,10 @@ def phase_lm_serve(cfg, model):
         del rec
         alone = torch.cat([T.prefill(model, cfg, {"tokens": prompts[i:i + 1]})
                            for i in range(prompts.shape[0])])
+    steps = out["prompt_len"] + out["generated"]
+    check(launches["decode_attention"] == steps * cfg.n_layers,
+          f"{launches['decode_attention']} decode-attention launches, {steps} steps "
+          f"x {cfg.n_layers} layers")
     dec = out["prompt_logits"]
     check(bool(torch.isfinite(dec).all()), "decode logits not finite")
     rel = rel_l2(dec, last)
@@ -993,6 +1026,114 @@ def trace_decode(cfg, model, batch: int, context: int, steps: int = 3) -> dict:
             "device_busy_ms_per_step": busy if kernels else None,
             "idle_share": 1.0 - busy / (host * 1e3) if kernels else None,
             "kernels_per_step": len(kernels) / steps}
+
+
+def decode_row(launches: dict) -> dict:
+    """The decode-attention kernel at :data:`DECODE_SHAPE` in bf16, for
+    each n_valid of :data:`DECODE_VALID`: its time (CUDA events, the
+    smaller of two runs around the plain core), the bytes bound (the valid
+    K and V, q and out, each moved once, at 3.35 TB/s), the plain core's
+    time (the whole cache upcast and multiplied in float32, as attn_decode
+    ran before the kernel) and scaled_dot_product_attention over the valid
+    slots as the yardstick, timed only.  The kernel is held to the float32
+    summation bar against the plain core (``err_over_bar`` <= 1, the
+    worst error over its bar), SDPA's error is reported only.  ``split``:
+    the same at :data:`DECODE_SPLIT_BATCH` rows, where the blocks do not
+    fill the card, the planned split call against one launch unsplit
+    (each checked against the bar, timed queued behind a sleep so the
+    host's launch cost does not pace them).  ``launches``: the serving
+    path's counts."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention_ref, summation_bar,
+                                                      valid_mask)
+    from repro_torch.kernels.decode_attention import kernel as da
+
+    B, Hk, G, D, S = DECODE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def over_bar(got, q, k, v, n):
+        want = decode_attention_ref(q, k, v, valid=valid_mask(S, n, "cuda"))
+        bar = summation_bar(q, k, v, n, got.dtype)
+        ratio = float(((got.double() - want.double()).abs() / bar).max())
+        check(ratio <= 1.0, f"decode attention at B = {q.shape[0]}, n_valid {n}: error "
+              f"{ratio} x the float32 summation bar")
+        return ratio
+
+    q, k, v = randn(B, Hk, G, D), randn(B, Hk, S, D), randn(B, Hk, S, D)
+    qh = q.reshape(B, Hk * G, 1, D)
+    by_valid = {}
+    for n in DECODE_VALID:
+        valid = valid_mask(S, n, "cuda")
+        kn, vn = k[:, :, :n], v[:, :, :n]
+        ms = cuda_ms(lambda: da.decode_attention_cuda(q, k, v, n), iters=20)
+        plain_ms = cuda_ms(lambda: decode_attention_ref(q, k, v, valid=valid), iters=3)
+        ms2 = cuda_ms(lambda: da.decode_attention_cuda(q, k, v, n), iters=20)
+        lib_fn = lambda: F.scaled_dot_product_attention(qh, kn, vn,  # noqa: E731
+                                                        enable_gqa=True)
+        library_ms = cuda_ms(lib_fn, iters=20)
+        want = decode_attention_ref(q, k, v, valid=valid)
+        got = da.decode_attention_cuda(q, k, v, n)
+        lib_err = float((lib_fn().float().reshape(B, Hk, G, D) - want).abs().max())
+        nbytes = 2 * B * Hk * n * D * 2 + 2 * B * Hk * G * D * 2
+        b_ms = nbytes / PEAK_BYTES_S * 1e3
+        best = min(ms, ms2)
+        by_valid[str(n)] = {"ms": best, "bound_ms": b_ms, "share_of_bound": b_ms / best,
+                            "tb_s": nbytes / best / 1e9, "plain_ms": plain_ms,
+                            "library_ms": library_ms,
+                            "max_abs_err": float((got.float() - want).abs().max()),
+                            "err_over_bar": over_bar(got, q, k, v, n),
+                            "library_max_abs_err": lib_err}
+        del want, got
+    da.reset_launches()
+    da.decode_attention_cuda(q, k, v, DECODE_VALID[0])
+    torch.cuda.synchronize()
+    check(da.launches["decode_attention_split"] == 0,
+          "the decode cell's shape took the split route")
+    split = split_row(da, q[:DECODE_SPLIT_BATCH].contiguous(),
+                      k[:DECODE_SPLIT_BATCH].contiguous(),
+                      v[:DECODE_SPLIT_BATCH].contiguous(), over_bar)
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu", "replaces": None,
+            "replaces_note": "no TPU kernel: the reference decodes with XLA einsums "
+            "(src/repro/models/attention.py attn_decode)",
+            "launches": launches["decode_attention"],
+            "launches_split": launches["decode_attention_split"],
+            **by_valid[str(DECODE_VALID[0])], "bound_by": "bytes",
+            "by_valid": by_valid, "split": split, "ptxas": kernel_ptxas(da, "decode_"),
+            "shape": {"q": [B, Hk, G, D], "k": [B, Hk, S, D], "dtype": "torch.bfloat16"}}
+
+
+def split_row(da, q, k, v, over_bar) -> dict:
+    """For each n_valid of :data:`DECODE_VALID`: the kernel's planned call
+    on these few rows (split, then merged) against one launch unsplit, both
+    timed by :func:`queued_ms` and held to the bar by ``over_bar``."""
+    B, Hk, G, D = q.shape
+    S = k.shape[2]
+    planned = da.plan_splits
+    out = {}
+    for n in DECODE_VALID:
+        splits, per = planned(B * Hk, n, da.TILE[q.dtype], da.slots(q.device, D, q.dtype))
+        check(splits > 1, f"{B} rows at n_valid {n} did not split")
+        row = {"splits": splits, "positions_a_split": per}
+        for name, plan in (("split", planned),
+                           ("unsplit", lambda blocks, n, tile, slots:
+                            (1, -(-n // tile) * tile))):
+            da.plan_splits = plan
+            try:
+                row[f"{name}_ms"] = queued_ms(lambda: da.decode_attention_cuda(q, k, v, n))
+                row[f"{name}_err_over_bar"] = over_bar(da.decode_attention_cuda(q, k, v, n),
+                                                       q, k, v, n)
+            finally:
+                da.plan_splits = planned
+        nbytes = 2 * B * Hk * n * D * 2 + 2 * B * Hk * G * D * 2
+        row["bound_ms"] = nbytes / PEAK_BYTES_S * 1e3
+        row["split_gain"] = row["unsplit_ms"] / row["split_ms"]
+        out[str(n)] = row
+    return {"shape": {"q": [B, Hk, G, D], "k": [B, Hk, S, D]}, "by_valid": out}
 
 
 def flash_row(launches: dict, err: float, first, long: dict) -> dict:
@@ -3745,6 +3886,7 @@ def main() -> int:
     # ---- the serving path: prefill, then the launcher's cached decode ----
     cfg, model, lm_launches, flash_errs, first = phase_lm_prefill()
     phase_lm_serve(cfg, model)
+    rows.append(decode_row(EMITTED["lm_serve"]["launches"]))
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,5 +1,7 @@
 """GQA attention: prefill (the flash kernel on the card, the reference's
-plain path elsewhere) and cached decode.
+plain path elsewhere) and cached decode (the decode-attention kernel on the
+card, which reads only the cache slots that hold a token; the plain version
+elsewhere and on a mesh).
 
 ``p`` is a layer's attention parameters, anything with the tensors ``wq``,
 ``wk``, ``wv`` and ``wo`` as attributes (the :class:`Attention` module), in
@@ -15,6 +17,7 @@ from torch import nn
 
 from ..distributed import (axis_index, constrain, current_rules, gather_columns, is_sharded,
                            local_apply)
+from ..kernels.decode_attention import decode_attention, decode_attention_ref, valid_mask
 from ..kernels.flash_attention import flash_attention
 from ..runtime.spans import count
 from .common import ModelConfig, apply_mrope, apply_rope
@@ -261,15 +264,6 @@ def attn_forward(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     return o @ p.wo, (kh, vh)
 
 
-def _decode_core(q, keys, values, *, valid: torch.Tensor) -> torch.Tensor:
-    """One query position against a cache: float32 scores over the key
-    positions where ``valid``, softmax, the weighted values (float32)."""
-    s = torch.matmul(q.float(), keys.float().transpose(-1, -2))
-    s = s / torch.sqrt(torch.tensor(float(q.shape[-1])))
-    s = s.masked_fill(~valid, -1e30)
-    return torch.matmul(torch.softmax(s, dim=-1), values.float())
-
-
 def _decode_columns(q, cache_k, cache_v, *, cfg: ModelConfig, axis: str, core):
     """Local body of the decode step where the query heads do not divide
     ``axis``: q (B, 1, H * Dh) whole, the caches whole over ``axis``; this
@@ -309,12 +303,17 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
     cache_k[:, :, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, :, slot] = v[:, 0].to(cache_v.dtype)
     # the first min(pos + 1, S_ctx) slots hold a token (a ring's are its
-    # last writes); the core reads all S_ctx of them
+    # last writes)
     n_valid = min(pos_idx + 1, S_ctx)
-    valid = torch.arange(S_ctx, device=x.device) < n_valid
+    if not is_sharded(q):
+        # GQA without repeating the cache: query head h = kv * group + g; the
+        # op counts the slots its route reads
+        o = decode_attention(q.reshape(B, Hk, H // Hk, Dh), cache_k, cache_v, n_valid)
+        return o.to(x.dtype).reshape(B, 1, H * Dh) @ p.wo, cache_k, cache_v
+    # the dry-run on a mesh: the plain core, shard by shard, over all S_ctx
     count(kv_read=S_ctx, kv_valid=n_valid)
-    core = partial(_decode_core, valid=valid)
-    axis = _uneven_heads_axis(cfg) if is_sharded(q) else None
+    core = partial(decode_attention_ref, valid=valid_mask(S_ctx, n_valid, x.device))
+    axis = _uneven_heads_axis(cfg)
     if axis is not None:
         # the query heads do not divide the axis: each rank the heads its
         # columns of wo read, as in :func:`_attn_by_columns`
@@ -324,7 +323,7 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
                         (q.reshape(B, 1, H * Dh), cache_k, cache_v),
                         (("batch", None, None), cax, cax), (split,))
         return o.to(x.dtype) @ p.wo, cache_k, cache_v
-    if is_sharded(q) and not kv_heads_split(cfg):
+    if not kv_heads_split(cfg):
         # the dry-run on a mesh whose "model" axis the kv heads do not
         # divide: the reference's form, the cache repeated to every query
         # head, shard by shard over the batch rows and query heads
@@ -333,8 +332,8 @@ def attn_decode(p, x: torch.Tensor, cfg: ModelConfig, cache_k: torch.Tensor,
                                cache_v.repeat_interleave(H // Hk, dim=1)),
                         (ax, ax, ax), (0,))                     # (B,H,1,Dh)
     else:
-        # GQA without repeating the cache: query head h = kv * group + g;
-        # the query heads split as the cache's kv heads do, shard by shard
+        # the GQA form as above, the query heads split as the cache's kv
+        # heads do, shard by shard
         q = constrain(q, ("batch", None, "cache_heads", None), (B, 1, Hk, Dh))
         ax = ("batch", "cache_heads", None, None)
         o = local_apply(core, (q.reshape(B, Hk, H // Hk, Dh), cache_k, cache_v),
