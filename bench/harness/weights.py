@@ -1,6 +1,6 @@
 """Model weights drawn from the seed on the device, in the port's parameter
-layout: a nested dict whose ``blocks.pos0`` leaves carry a leading layer
-axis.
+layout: a nested dict whose ``blocks.pos{i}`` leaves (``i`` a layer's place
+in the family's period of layers) carry a leading axis over the periods.
 
 The leaves are the embedding, the output head and the final norm, which
 every family has, and the blocks' leaves that the family's module lists

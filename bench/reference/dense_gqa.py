@@ -3,8 +3,9 @@ rotary embeddings, SwiGLU): its weights' layout, its work counts, and its
 plain float32 reference.
 
 :func:`layout` lists the blocks' leaves that ``bench/harness/weights.py``
-draws. :func:`layer_matrix_params`, :func:`kernel_calls` and
-:func:`decode_cache` count what ``bench/work/lm.py`` composes into whole
+draws. :func:`matrix_params`, :func:`active_matrix_params`,
+:func:`vector_params`, :func:`kernel_calls` and :func:`decode_cache` count,
+over the whole model, what ``bench/work/lm.py`` composes into whole
 calls. :func:`hidden` runs prompts or decode continuations through every
 layer, one layer at a time, and returns the final-normed hidden states;
 :func:`logits` applies the output head. The decode form takes the cache's
@@ -43,16 +44,21 @@ def layout(m: dict) -> list[tuple]:
             (f + "w_down", (L, F, D), "bf16", 1 / math.sqrt(F))]
 
 
-def layer_matrix_params(m: dict) -> int:
-    """Weights of one layer's matrix products: q, k, v, o and SwiGLU."""
-    D, F = m["d_model"], m["d_ff"]
+def matrix_params(m: dict) -> int:
+    """Weights of every layer's matrix products: q, k, v, o and SwiGLU."""
+    L, D, F = m["n_layers"], m["d_model"], m["d_ff"]
     H, Hk, Dh = m["n_heads"], m["n_kv_heads"], m["head_dim"]
-    return 2 * D * H * Dh + 2 * D * Hk * Dh + 3 * D * F
+    return L * (2 * D * H * Dh + 2 * D * Hk * Dh + 3 * D * F)
 
 
-def layer_vector_params(m: dict) -> int:
-    """One layer's vectors: the two norms."""
-    return 2 * m["d_model"]
+def active_matrix_params(m: dict) -> int:
+    """The matrix weights one token's products meet: all of them."""
+    return matrix_params(m)
+
+
+def vector_params(m: dict) -> int:
+    """Every layer's vectors: the two norms."""
+    return m["n_layers"] * 2 * m["d_model"]
 
 
 def causal_pairs(S: int) -> int:

@@ -75,16 +75,21 @@ def layout(m: dict) -> list[tuple]:
             (c + "w_v", (L, F_, D), "bf16", 1 / math.sqrt(F_))]
 
 
-def layer_matrix_params(m: dict) -> int:
-    """Weights of one layer's matrix products: r, k, v, w, gate, out and
+def matrix_params(m: dict) -> int:
+    """Weights of every layer's matrix products: r, k, v, w, gate, out and
     the channel mix."""
-    D, F_ = m["d_model"], m["d_ff"]
-    return 6 * D * D + 2 * D * F_
+    L, D, F_ = m["n_layers"], m["d_model"], m["d_ff"]
+    return L * (6 * D * D + 2 * D * F_)
 
 
-def layer_vector_params(m: dict) -> int:
-    """One layer's vectors: two norms, five mixes, decay bias and bonus."""
-    return 9 * m["d_model"]
+def active_matrix_params(m: dict) -> int:
+    """The matrix weights one token's products meet: all of them."""
+    return matrix_params(m)
+
+
+def vector_params(m: dict) -> int:
+    """Every layer's vectors: two norms, five mixes, decay bias and bonus."""
+    return m["n_layers"] * 9 * m["d_model"]
 
 
 def wkv6_call(m: dict, B: int, S: int, chunk: int = CHUNK) -> tuple[float, float]:

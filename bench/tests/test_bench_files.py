@@ -87,10 +87,97 @@ def test_metric_readers_load(name):
     assert callable(R.metric_reader(name).read)
 
 
-def test_configs_hold_their_widths():
-    for c in SPEC["configs"]:
-        f = R.load_json(ROOT / c["file"])
-        assert f["name"] == c["name"] and f["reduced"] == c["reduced"] == []
-        assert f["model"]["name"] == c["name"]
-        assert f["source"] and f["reference"]
-        assert (ROOT / "bench" / "reference" / f"{f['reference']}.py").is_file()
+#: ``model`` keys that hold a width, which no cut may change, besides every
+#: key that ends in ``_dim`` or ``_rank``
+WIDTHS = {"d_model", "d_ff", "d_state", "d_conv", "ssm_expand", "top_k"}
+
+
+def config_faults(f: dict, entry: dict) -> list[str]:
+    """What is wrong with configuration file ``f`` against its
+    ``BENCHMARK.json`` entry: empty when nothing is. The file names its
+    entry and its family's reference, has ``smoke`` widths over ``model``
+    keys, and states its cuts: ``reduced`` as in the entry, each a ``model``
+    key that is no width, and ``cut`` giving for each the published value,
+    which the ``model`` value differs from, and one line on the deployment
+    it stands for."""
+    faults = []
+    model, reduced, cut = f.get("model", {}), f.get("reduced"), f.get("cut") or {}
+    if not f.get("name") == model.get("name") == entry["name"]:
+        faults.append("the file and its model are not named as the entry")
+    if not f.get("source") or not (
+            ROOT / "bench" / "reference" / f"{f.get('reference')}.py").is_file():
+        faults.append("no source, or no reference module of that name")
+    if not f.get("smoke") or set(f["smoke"]) - set(model):
+        faults.append("no smoke widths, or smoke keys that model lacks")
+    if reduced != entry["reduced"]:
+        faults.append(f"reduced {reduced} is not the entry's {entry['reduced']}")
+    if set(cut) != set(reduced or ()):
+        faults.append(f"cut names {sorted(cut)}, reduced {reduced}")
+    for k in reduced or ():
+        if k not in model:
+            faults.append(f"reduced key {k} is not a model key")
+        elif k in WIDTHS or k.endswith(("_dim", "_rank")):
+            faults.append(f"reduced key {k} is a width")
+        elif k in cut and cut[k].get("published") == model[k]:
+            faults.append(f"{k} is cut to its published value {model[k]}")
+        why = cut.get(k, {}).get("why")
+        if k in cut and (not isinstance(why, str) or not why or "\n" in why):
+            faults.append(f"cut {k} gives no one-line why")
+    return faults
+
+
+@pytest.mark.parametrize("c", SPEC["configs"], ids=lambda c: c["name"])
+def test_configs_hold_their_widths(c):
+    assert config_faults(R.load_json(ROOT / c["file"]), c) == []
+
+
+def cut_file() -> tuple[dict, dict]:
+    """(a made-up file, its entry): yi-9b as the first of three pipeline
+    stages, 16 of its 48 layers."""
+    f = R.load_json(ROOT / "bench" / "configs" / "yi-9b.json")
+    f["model"]["n_layers"] = 16
+    f["reduced"] = ["n_layers"]
+    f["cut"] = {"n_layers": {"published": 48, "why": "first of three pipeline stages"}}
+    return f, {"name": "yi-9b", "reduced": ["n_layers"]}
+
+
+def test_a_cut_configuration_passes():
+    assert config_faults(*cut_file()) == []
+
+
+def _same_as_published(f, entry):
+    f["model"]["n_layers"] = 48
+
+
+def _cut_lacks_a_key(f, entry):
+    f["model"]["vocab_size"] = 8000
+    f["reduced"] = entry["reduced"] = ["n_layers", "vocab_size"]
+
+
+def _entry_differs(f, entry):
+    entry["reduced"] = []
+
+
+def _a_width(f, entry):
+    f["model"]["d_ff"] = 5504
+    f["reduced"] = entry["reduced"] = ["n_layers", "d_ff"]
+    f["cut"]["d_ff"] = {"published": 11008, "why": "half the FFN"}
+
+
+def _not_a_model_key(f, entry):
+    f["reduced"] = entry["reduced"] = ["num_hidden_layers"]
+    f["cut"] = {"num_hidden_layers": {"published": 48, "why": "first of three stages"}}
+
+
+@pytest.mark.parametrize("spoil,fault", [
+    (_same_as_published, "cut to its published value"),
+    (_cut_lacks_a_key, "cut names"),
+    (_entry_differs, "is not the entry's"),
+    (_a_width, "is a width"),
+    (_not_a_model_key, "is not a model key"),
+], ids=["same_as_published", "cut_lacks_a_key", "entry_differs", "a_width",
+        "not_a_model_key"])
+def test_a_spoilt_cut_is_refused(spoil, fault):
+    f, entry = cut_file()
+    spoil(f, entry)
+    assert any(fault in x for x in config_faults(f, entry)), config_faults(f, entry)

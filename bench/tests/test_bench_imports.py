@@ -1,6 +1,9 @@
 """What the harness and the reference load, by whole top-level module
 name: never ``jax``, ``jaxlib``, ``flax`` or ``repro`` (the JAX package);
-the reference also nothing of the program (``repro_torch``)."""
+the reference also nothing of the program (``repro_torch``). The harness
+drives every cell of ``BENCHMARK.json`` at smoke size, and every module in
+``bench/reference`` is loaded, so a new cell or family is held to this
+without an edit here."""
 
 from __future__ import annotations
 
@@ -15,11 +18,12 @@ import json, sys, time
 sys.path[:0] = [{root!r}, {src!r}]
 import torch
 sys.path.insert(0, {tests!r})
-from conftest import smoke_cell
+from conftest import ROOT, smoke_cell
 from bench import run as R
 import bench.calibrate
 import bench.faults
-for w in ("yi-9b.prefill-4k", "rwkv6-1.6b.prefill-4k", "yi-9b.decode-b128"):
+spec = R.load_json(ROOT / "BENCHMARK.json")
+for w in [x["name"] for x in spec["workloads"]]:
     spec, cell, config = smoke_cell(w)
     for trace in (False, True):
         res, _ = R.drive(spec, w, cell, config, 7, 0.05, trace, torch.device("cpu"),
@@ -30,21 +34,31 @@ for name in [p["name"] for p in spec["per_layer"]]:
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """
 
+#: every module in bench/reference is loaded, and each configuration's
+#: family runs its reference at the configuration's smoke widths in every
+#: precision; the last line also lists the reference modules loaded
 REFERENCE = """
-import json, sys
+import importlib, json, sys
+from pathlib import Path
 sys.path[:0] = [{root!r}]
 import torch
-from bench.reference import common, dense_gqa, rwkv6
+from bench.reference import common
 from bench.harness.weights import make_weights
-for name, ref, extra in (("dense_gqa", dense_gqa, dict(rope_theta=1e4)),
-                         ("rwkv6", rwkv6, dict(ssm="rwkv6", rwkv_head_dim=8))):
-    m = dict(n_layers=1, d_model=16, n_heads=2, n_kv_heads=1, head_dim=8, d_ff=32,
-             vocab_size=32, norm_eps=1e-6, **extra)
+root = Path({root!r})
+for p in sorted((root / "bench" / "reference").glob("*.py")):
+    if p.stem != "__init__":
+        importlib.import_module("bench.reference." + p.stem)
+spec = json.loads((root / "BENCHMARK.json").read_text())
+for c in spec["configs"]:
+    f = json.loads((root / c["file"]).read_text())
+    m = dict(f["model"], **f["smoke"])
+    ref = importlib.import_module("bench.reference." + f["reference"])
     w = make_weights(ref, m, 3, torch.device("cpu"), torch.float32)
-    t = torch.randint(0, 32, (2, 9))
+    t = torch.randint(0, m["vocab_size"], (2, 9))
     for p in common.PRECISIONS:
         ref.logits(w, ref.hidden(w, m, t, precision=p), precision=p)
-print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
+print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}}
+                        | {{m for m in sys.modules if m.startswith("bench.reference.")}})))
 """
 
 
@@ -65,6 +79,8 @@ def test_harness_loads_no_jax():
 def test_reference_loads_neither_jax_nor_the_program():
     mods = loaded(REFERENCE.format(root=str(ROOT)))
     assert "bench" in mods
+    assert {f"bench.reference.{p.stem}" for p in (ROOT / "bench" / "reference").glob("*.py")
+            if p.stem != "__init__"} <= mods
     assert not mods & {"jax", "jaxlib", "flax", "repro", "repro_torch"}
 
 

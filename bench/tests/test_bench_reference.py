@@ -1,41 +1,45 @@
-"""The frozen float32 references against the port's plain CPU paths on the
-smoke configurations: prefill logits, and decode steps over a seeded
-cache; the chunked wkv against a token-by-token recurrence."""
+"""The frozen float32 references against the port's plain CPU paths at
+each configuration's smoke widths (its file's ``smoke``): prefill logits,
+and decode steps over a seeded cache; the chunked wkv against a
+token-by-token recurrence."""
 
 from __future__ import annotations
+
+import importlib
 
 import pytest
 import torch
 
-from conftest import SMOKE
+from conftest import ROOT, smoke_widths
 
+from bench import run as R
 from bench.harness import traffic
 from bench.harness.weights import make_weights
 from bench.reference import dense_gqa, rwkv6
 
 CPU = torch.device("cpu")
 SEED = 2**31 + 12345
+SPEC = R.load_json(ROOT / "BENCHMARK.json")
+#: each configuration's name and its family's reference module
+FAMILIES = [(c["name"], importlib.import_module(
+    f"bench.reference.{R.load_json(ROOT / c['file'])['reference']}")) for c in SPEC["configs"]]
 
 
 def port(widths: dict, weights: dict):
     from repro_torch.models import transformer as T
     from repro_torch.models.common import ModelConfig
 
-    m = dict(widths, name="smoke", family="ssm" if widths.get("ssm") else "dense")
+    m = dict(widths, name="smoke")
     cfg = ModelConfig(**m)
     return m, T, cfg, T.DecoderLM(cfg, weights)
 
 
 def widths(name: str) -> dict:
-    w = dict(SMOKE[name], norm_eps=1e-6)
-    if name == "rwkv6-1.6b":
-        w["ssm"] = "rwkv6"
-    else:
-        w["rope_theta"] = 10000.0
-    return w
+    """The configuration's smoke widths, from its file."""
+    return smoke_widths(R.load_json(ROOT / "bench" / "configs" / f"{name}.json"))
 
 
-@pytest.mark.parametrize("name,ref", [("yi-9b", dense_gqa), ("rwkv6-1.6b", rwkv6)])
+@pytest.mark.parametrize("name,ref", FAMILIES)
 @pytest.mark.parametrize("S", [40, 97])
 def test_prefill_logits(name, ref, S):
     w = widths(name)
